@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Where one full-width Zero123-XL UNet eval of the PyTorch port spends its
+time on the card, at the main path's CFG batches (8 and 56).
+
+    python3 examples/torch_profile_unet.py [--batches 8 56] [--iters 10] [--out-dir DIR]
+
+For each batch: the eval's time by CUDA events and by the host clock (after
+warm-up), UNet MFU against 989 TFLOP/s bf16, and a torch.profiler window of
+a few evals: device busy and idle share, the flash-attention kernel's share,
+and the top operators by device time.  With ``--out-dir`` the full operator
+tables go to DIR/torch_profile_unet_b<B>.txt.  Weights are seeded and
+non-zero (chip_smoke.seeded_state_dict).  Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def device_time(evt) -> float:
+    """Device time of a kernel (device-side) profiler row in microseconds."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+# kernel families by a substring of the kernel's name, first match wins
+FAMILIES = (
+    ("flash_attention", ("flash_fwd_kernel",)),
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convs", ("fprop", "conv", "implicit")),
+    ("matmuls", ("gemm", "nvjet", "cutlass")),
+    ("norms", ("norm", "Moments", "ComputeFused")),
+)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "elementwise and copies"
+
+
+def sort_key(prof) -> str:
+    """The profiler table's sort key for device time in this torch version."""
+    avg = prof.key_averages()
+    return "self_device_time_total" if hasattr(avg[0], "self_device_time_total") else "self_cuda_time_total"
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile_unet: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from chip_smoke import seeded_state_dict
+    from one2345_tpu_torch.core.config import DiffusionConfig
+    from one2345_tpu_torch.core.profiling import unet_flops_per_eval
+    from one2345_tpu_torch.diffusion.unet import UNetModel, cast_compute
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batches", type=int, nargs="+", default=[8, 56])
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--out-dir", default=None, help="directory for the full operator tables")
+    args = ap.parse_args()
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    u = DiffusionConfig().unet
+    kw = dict(
+        in_channels=u.in_channels, out_channels=u.out_channels,
+        model_channels=u.model_channels, num_res_blocks=u.num_res_blocks,
+        attention_resolutions=tuple(u.attention_resolutions),
+        channel_mult=tuple(u.channel_mult), num_heads=u.num_heads,
+        transformer_depth=u.transformer_depth, context_dim=u.context_dim,
+    )
+    with torch.device("meta"):
+        shapes = UNetModel(**kw)
+    with torch.device("cuda"):
+        unet = UNetModel(**kw)
+    unet.load_state_dict(seeded_state_dict(shapes, seed=args.seed), strict=True)
+    cast_compute(unet.requires_grad_(False).eval(), torch.bfloat16)
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+
+    for B in args.batches:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + B)
+        x = torch.randn(B, 32, 32, u.in_channels, generator=gen, device="cuda")
+        t = torch.full((B,), 500, device="cuda")
+        ctx = torch.randn(B, 1, u.context_dim, generator=gen, device="cuda")
+
+        def step():
+            with torch.inference_mode():
+                unet(x, t, ctx)
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(args.iters):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+        ev_ms = start.elapsed_time(end) / args.iters
+        flops = unet_flops_per_eval(B)
+
+        n_prof = 3
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            for _ in range(n_prof):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - w0) * 1e6
+        cuda = torch.autograd.DeviceType.CUDA
+        rows = [r for r in prof.key_averages() if r.device_type == cuda and device_time(r) > 0]
+        busy_us = sum(device_time(r) for r in rows)
+        flash_us = sum(device_time(r) for r in rows if "flash_fwd_kernel" in r.key)
+        rows.sort(key=device_time, reverse=True)
+        fams = {}
+        for r in rows:
+            fams[family(r.key)] = fams.get(family(r.key), 0.0) + device_time(r)
+        launches = sum(r.count for r in rows) / n_prof
+        if args.out_dir:
+            table = prof.key_averages().table(sort_by=sort_key(prof), row_limit=60)
+            with open(os.path.join(args.out_dir, f"torch_profile_unet_b{B}.txt"), "w") as f:
+                f.write(f"{smi}\nB={B}\n{table}\n")
+        print(
+            f"unet B={B}: {ev_ms:.3f} ms/eval (CUDA events), {host_ms:.3f} ms/eval (host), "
+            f"{flops / 1e12:.3f} TFLOP, MFU {flops / (ev_ms * 1e-3) / 989e12:.4f} | profiled "
+            f"{n_prof} evals: device busy {busy_us / wall_us:.3f} of {wall_us / 1e3:.1f} ms, "
+            f"flash_attention {flash_us / busy_us:.3f} of busy, {launches:.0f} device "
+            f"kernels per eval | {smi}",
+            flush=True,
+        )
+        print(
+            "  by family (ms/eval): "
+            + ", ".join(f"{k} {v / n_prof / 1e3:.3f}" for k, v in sorted(fams.items(), key=lambda kv: -kv[1])),
+            flush=True,
+        )
+        for r in rows[:12]:
+            print(
+                f"  {device_time(r) / n_prof / 1e3:8.3f} ms/eval {r.count // n_prof:5d} calls/eval  "
+                f"{r.key[:110]}",
+                flush=True,
+            )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,260 @@
+"""Zero123 view-conditioned sampling — the multi-view stage of image -> mesh.
+
+Counterpart of ``one2345_tpu/diffusion/zero123.py`` (DDIM sampler only):
+
+- conditioning: CLIP image token ++ (radians dx, sin dy, cos dy, 0) pose
+  token -> CCProjection Linear(772 -> 768); the concat conditioning is the
+  VAE ``.mode()`` latent of the conditioning image, unscaled;
+- classifier-free guidance runs uncond-first in one double batch, with
+  ZERO unconditional context and concat latent;
+- all views of a stage sample in one batch (stage 2: 4 nearby views per
+  stage-1 view, 28 views for the 7 views after view 0).
+
+Noise: every view's noise comes from its own ``torch.Generator`` on the
+stage's device, seeded from (seed, view id, draw index), so a view's noise
+does not depend on its batch position.  View ids are the JAX package's:
+stage 1 uses the global candidate index, stage 2 ``12 + 4 * parent + j``.
+``noise_fn(draw, view_ids, shape)`` replaces the generator (the tests feed
+the JAX noise through it).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from one2345_tpu_torch.core.config import DiffusionConfig
+from one2345_tpu_torch.diffusion.clip import CLIPVisionTower, preprocess_for_clip
+from one2345_tpu_torch.diffusion.ddim import ddim_sample, trim_for_sample
+from one2345_tpu_torch.diffusion.schedule import DDIMSchedule, make_ddim_schedule
+from one2345_tpu_torch.diffusion.unet import UNetModel, cast_compute
+from one2345_tpu_torch.diffusion.vae import Decoder, Encoder, moments_mode
+
+# stage-1 view deltas: 12 candidate views, of which [0:8] are used for low
+# elevation and [0:4]+[8:12] for high
+STAGE1_DELTA_X = [0.0] * 4 + [30.0] * 4 + [-30.0] * 4
+STAGE1_DELTA_Y = [0.0 + 90 * (i % 4) if i < 4 else 30.0 + 90 * (i % 4) for i in range(8)] + [
+    30.0 + 90 * (i % 4) for i in range(4)
+]
+# stage-2 nearby-view deltas
+STAGE2_DELTA_X = [-10.0, 10.0, 0.0, 0.0]
+STAGE2_DELTA_Y = [0.0, 0.0, -10.0, 10.0]
+
+
+def pose_tokens(delta_x_deg, delta_y_deg) -> np.ndarray:
+    """[B, 1, 4] (radians dx, sin radians dy, cos radians dy, 0)."""
+    dx = np.radians(np.asarray(delta_x_deg, np.float64))
+    dy = np.radians(np.asarray(delta_y_deg, np.float64))
+    T = np.stack([dx, np.sin(dy), np.cos(dy), np.zeros_like(dx)], axis=-1)
+    return T[:, None, :].astype(np.float32)
+
+
+class CCProjection(nn.Module):
+    """Linear(772 -> 768) as ``x @ kernel + bias``, identity+zeros init."""
+
+    def __init__(self, in_dim: int = 772, out_dim: int = 768):
+        super().__init__()
+        kernel = torch.zeros(in_dim, out_dim)
+        kernel[:out_dim] = torch.eye(out_dim)
+        self.kernel = nn.Parameter(kernel)
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x):
+        return x @ self.kernel + self.bias
+
+
+def noise_seed(seed: int, view_id: int, draw: int) -> int:
+    """64-bit generator seed for one (seed, view id, draw index)."""
+    state = np.random.SeedSequence([seed, view_id, draw]).generate_state(2, np.uint32)
+    return int(state[0]) << 32 | int(state[1])
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` -> the card; raises when CUDA is absent (pass 'cpu' to run
+    the plain path on the CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: one2345_tpu_torch runs on the card by "
+                "default; pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+class Zero123Stage:
+    """The UNet / VAE / CLIP / CCProjection modules and the samplers.
+
+    :param params: state dicts keyed 'unet', 'encoder', 'decoder', 'clip',
+        'cc_projection' (``utils.convert_jax.zero123_from_jax`` makes them
+        from the JAX parameter tree), loaded with ``strict=True``; None ->
+        modules initialised from ``seed`` (zero-initialised outputs, like
+        the JAX init)
+    :param device: None -> 'cuda' (raises without CUDA)
+    """
+
+    def __init__(self, config: DiffusionConfig | None = None, params=None, seed: int = 0,
+                 device=None):
+        self.config = cfg = config or DiffusionConfig()
+        self.device = resolve_device(device)
+        if cfg.unet.quant != "none":
+            raise ValueError(f"UNetConfig.quant {cfg.unet.quant!r} is not ported: use 'none'")
+        if cfg.sampler != "ddim":
+            raise ValueError(f"sampler {cfg.sampler!r} is not ported: use 'ddim'")
+        self.dtype = torch.bfloat16 if cfg.unet.dtype == "bfloat16" else torch.float32
+        self.scale_factor = cfg.vae.scale_factor
+        # modules are built on their device, from their own seed, leaving
+        # the global generators as they were
+        cuda = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=cuda), self.device:
+            torch.manual_seed(seed)
+            self.unet = UNetModel(
+                in_channels=cfg.unet.in_channels,
+                out_channels=cfg.unet.out_channels,
+                model_channels=cfg.unet.model_channels,
+                num_res_blocks=cfg.unet.num_res_blocks,
+                attention_resolutions=tuple(cfg.unet.attention_resolutions),
+                channel_mult=tuple(cfg.unet.channel_mult),
+                num_heads=cfg.unet.num_heads,
+                transformer_depth=cfg.unet.transformer_depth,
+                context_dim=cfg.unet.context_dim,
+            )
+            vae = dict(
+                base_channels=cfg.vae.base_channels,
+                channel_mult=tuple(cfg.vae.channel_mult),
+                num_res_blocks=cfg.vae.num_res_blocks,
+                z_channels=cfg.vae.z_channels,
+            )
+            self.encoder = Encoder(in_channels=cfg.vae.in_channels, **vae)
+            self.decoder = Decoder(out_channels=cfg.vae.out_channels, **vae)
+            self.clip = CLIPVisionTower(
+                image_size=cfg.clip.image_size,
+                patch_size=cfg.clip.patch_size,
+                width=cfg.clip.width,
+                layers=cfg.clip.layers,
+                heads=cfg.clip.heads,
+                embed_dim=cfg.clip.embed_dim,
+            )
+            self.cc_projection = CCProjection(cfg.clip.embed_dim + 4, cfg.unet.context_dim)
+        for name in ("unet", "encoder", "decoder", "clip", "cc_projection"):
+            module = getattr(self, name)
+            if params is not None:
+                module.load_state_dict(params[name], strict=True)
+            module.requires_grad_(False).eval()
+            if name != "cc_projection":  # the JAX CCProjection runs in f32
+                cast_compute(module, self.dtype)
+
+    # ------------------------------------------------------------- sampling
+    def _schedule(self, steps: int) -> DDIMSchedule:
+        cfg = self.config
+        sched = make_ddim_schedule(
+            steps, cfg.timesteps, cfg.ddim_eta, cfg.linear_start, cfg.linear_end
+        )
+        return trim_for_sample(sched)
+
+    def per_view_noise(self, seed: int, draw: int, view_ids, shape) -> torch.Tensor:
+        """[len(view_ids), *shape] f32 gaussian noise, one generator per
+        (seed, view id, draw)."""
+        out = []
+        for vid in view_ids:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(noise_seed(seed, int(vid), draw))
+            out.append(torch.randn(shape, generator=gen, device=self.device))
+        return torch.stack(out)
+
+    @torch.inference_mode()
+    def encode_conditioning(self, cond_images: torch.Tensor, T: torch.Tensor):
+        """Conditioning pack for a batch of views.
+
+        :param cond_images: [B, 256, 256, 3] in [-1, 1]
+        :param T: [B, 1, 4] pose tokens
+        :return: (context [B, 1, 768] f32, concat latent [B, 32, 32, 4] f32)
+        """
+        clip_in = preprocess_for_clip(cond_images, self.config.clip.image_size)
+        emb = self.clip(clip_in)[:, None, :]
+        ctx = self.cc_projection(torch.cat([emb, T], dim=-1))
+        concat = moments_mode(self.encoder(cond_images))
+        return ctx, concat
+
+    @torch.inference_mode()
+    def sample_views(self, cond_images, delta_x_deg, delta_y_deg, seed: int,
+                     steps: int | None = None, cfg_scale: float | None = None,
+                     noise_ids=None, noise_fn=None) -> torch.Tensor:
+        """Generate B novel views in one batch: [B, 256, 256, 3] in [0, 1].
+
+        :param cond_images: [B, 256, 256, 3] in [-1, 1]
+        :param noise_ids: int per view that keys its noise (default: batch
+            position)
+        :param noise_fn: optional (draw, view_ids, per-view shape) -> noise
+            [B, *shape], replacing the per-view generators
+        """
+        cfg_scale = self.config.cfg_scale if cfg_scale is None else cfg_scale
+        steps = steps or self.config.ddim_steps_stage1
+        cond = torch.as_tensor(cond_images, dtype=torch.float32, device=self.device)
+        B = cond.shape[0]
+        ids = list(range(B)) if noise_ids is None else [int(i) for i in noise_ids]
+        if noise_fn is None:
+            def draw_noise(draw, shape):
+                return self.per_view_noise(seed, draw, ids, shape)
+        else:
+            def draw_noise(draw, shape):
+                noise = noise_fn(draw, ids, shape)
+                if not isinstance(noise, torch.Tensor):
+                    noise = np.asarray(noise)
+                return torch.as_tensor(noise, dtype=torch.float32, device=self.device)
+
+        T = torch.as_tensor(pose_tokens(delta_x_deg, delta_y_deg), device=self.device)
+        ctx, concat = self.encode_conditioning(cond, T)
+        # CFG double batch: [uncond ++ cond], zero unconditional inputs
+        ctx_in = torch.cat([torch.zeros_like(ctx), ctx])
+        concat_in = torch.cat([torch.zeros_like(concat), concat])
+        L, zc = self.config.latent_size, self.config.vae.z_channels
+
+        def eps_fn(x, t):
+            unet_in = torch.cat([torch.cat([x, x]), concat_in], dim=-1)
+            ts = torch.full((2 * B,), t, dtype=torch.int64, device=self.device)
+            e_uc, e_c = self.unet(unet_in, ts, ctx_in).chunk(2)
+            return e_uc + cfg_scale * (e_c - e_uc)
+
+        x = draw_noise(0, (L, L, zc))
+        x = ddim_sample(eps_fn, x, self._schedule(steps), lambda d, s: draw_noise(d, s[1:]))
+        imgs = self.decoder(x / self.scale_factor)
+        return torch.clamp((imgs + 1.0) / 2.0, 0.0, 1.0)
+
+    # ---------------------------------------------------------- stage entries
+    def stage1(self, input_image, seed: int, indices=None, steps=None, noise_fn=None):
+        """Stage-1 views of the 12 candidates.
+
+        :param input_image: [256, 256, 3] in [0, 1] (preprocessed, white bg)
+        :param indices: subset of the 12 candidate views (default all 12)
+        :return: [len(indices), 256, 256, 3] in [0, 1]
+        """
+        idx = list(indices) if indices is not None else list(range(12))
+        img = torch.as_tensor(input_image, dtype=torch.float32, device=self.device) * 2.0 - 1.0
+        cond = img[None].expand(len(idx), *img.shape)
+        return self.sample_views(
+            cond, [STAGE1_DELTA_X[i] for i in idx], [STAGE1_DELTA_Y[i] for i in idx], seed,
+            steps=steps or self.config.ddim_steps_stage1, noise_ids=idx, noise_fn=noise_fn,
+        )
+
+    def stage2(self, stage1_images, seed: int, steps=None, view_ids=None, noise_fn=None):
+        """The 4 nearby views of each stage-1 view, all in one batch.
+
+        :param stage1_images: [N, 256, 256, 3] in [0, 1]
+        :param view_ids: per-parent-view ids keying the noise (default arange)
+        :return: [N, 4, 256, 256, 3] in [0, 1]
+        """
+        imgs = torch.as_tensor(stage1_images, dtype=torch.float32, device=self.device)
+        n = imgs.shape[0]
+        # snap near-white to white, as the original re-reads its own PNGs
+        imgs = torch.where(imgs >= 253.0 / 255.0, torch.ones_like(imgs), imgs)
+        cond = imgs.repeat_interleave(4, dim=0) * 2.0 - 1.0  # [4N, ...]
+        if view_ids is None:
+            view_ids = list(range(n))
+        ids = [12 + int(v) * 4 + j for v in view_ids for j in range(4)]
+        out = self.sample_views(
+            cond, STAGE2_DELTA_X * n, STAGE2_DELTA_Y * n, seed,
+            steps=steps or self.config.ddim_steps_stage2, noise_ids=ids, noise_fn=noise_fn,
+        )
+        return out.reshape(n, 4, *out.shape[1:])

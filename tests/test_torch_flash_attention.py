@@ -1,0 +1,133 @@
+"""one2345_tpu_torch.ops.flash_attention against the JAX flash attention.
+
+On the CPU the wrapper runs its plain version, ``attention_reference``; it
+is held against the Pallas kernel (interpret mode) and against XLA's
+attention.  The CUDA kernel itself is compared with the same plain version
+on the card (the ``cuda`` test below, and chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from one2345_tpu.ops import flash_attention as jax_fa
+from one2345_tpu_torch.ops import flash_attention as fa
+from tests.torch_port_helpers import max_err
+
+
+def _qkv(B, T, S, H, D, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    import jax.experimental.pallas as pl
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(
+        pl, "pallas_call", lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
+    )
+
+
+@pytest.mark.parametrize("T,S,D", [(256, 256, 40), (256, 256, 80)])
+def test_reference_matches_pallas_kernel(T, S, D, interpret_pallas):
+    q, k, v = _qkv(2, T, S, 3, D, seed=D)
+    out_jax = jax_fa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128, block_kv=128
+    )
+    out, lse = fa.attention_reference(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert lse.shape == (2, 3, T) and lse.dtype == torch.float32
+    # the Pallas dots run at MXU precision (bf16 inputs) even in interpret
+    # mode: the bound of tests/test_flash_attention.py
+    assert max_err(out, out_jax) < 8e-3
+
+
+@pytest.mark.parametrize("T,S", [(64, 64), (16, 16), (64, 16)])
+def test_reference_matches_xla_ragged(T, S):
+    """UNet level 2 / middle shapes (d=160, below any 64-row tile) and a
+    ragged T != S, against XLA attention and logsumexp at full precision."""
+    q, k, v = _qkv(2, T, S, 8, 160, seed=T + S)
+    with jax.default_matmul_precision("highest"):
+        o_jax = jax.nn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        s = jnp.einsum("bthd,bshd->bhts", q, k) / np.sqrt(160.0)
+        lse_jax = jax.nn.logsumexp(s, axis=-1)
+    out, lse = fa.attention_reference(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert max_err(out, o_jax) < 1e-5
+    assert max_err(lse, lse_jax) < 1e-5
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_and_launches_nothing():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 64, 64, 2, 40, seed=3))
+    before = fa.flash_attention.launch_count
+    out, lse = fa.flash_attention(q, k, v)
+    ref_out, ref_lse = fa.attention_reference(q, k, v)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    assert fa.flash_attention.launch_count == before
+
+
+@pytest.mark.parametrize(
+    "D,width", [(40, 48), (48, 48), (64, 80), (80, 80), (96, 160), (160, 160)]
+)
+def test_kernel_width_pads_to_the_next_instance(D, width):
+    q = torch.zeros(2, 16, 8, D, dtype=torch.bfloat16)
+    assert fa.kernel_width(q, q, q) == width
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["float32", "odd_d", "wide_d", "shape_mismatch", "strided_d"],
+)
+def test_kernel_width_rejects_what_the_kernel_does_not_take(case):
+    bf = torch.bfloat16
+    q = k = v = torch.zeros(2, 16, 8, 40, dtype=bf)
+    if case == "float32":
+        q = q.float()
+    elif case == "odd_d":
+        q = k = v = torch.zeros(2, 16, 8, 41, dtype=bf)
+    elif case == "wide_d":
+        q = k = v = torch.zeros(2, 16, 8, 162, dtype=bf)
+    elif case == "shape_mismatch":
+        k = torch.zeros(2, 16, 4, 40, dtype=bf)
+    elif case == "strided_d":
+        q = torch.zeros(2, 16, 8, 80, dtype=bf)[..., ::2]
+    with pytest.raises(ValueError):
+        fa.kernel_width(q, k, v)
+
+
+def test_wrapper_refuses_mixed_devices():
+    q = torch.zeros(1, 16, 2, 40)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q.to("meta"), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,T,D", [(8, 1024, 40), (56, 1024, 40), (56, 256, 80), (56, 64, 160), (56, 16, 160)]
+)
+def test_kernel_matches_plain_version_on_card(B, T, D, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * T + D)
+    q, k, v = (
+        torch.randn(B, T, 8, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(3)
+    )
+    before = fa.flash_attention.launch_count
+    out, lse = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.attention_reference(q.float(), k.float(), v.float())
+    assert fa.flash_attention.launch_count == before + 1
+    # bf16 output and bf16 P in the P.V product: ~1e-2 absolute
+    assert max_err(out.float(), ref_out) < 2e-2
+    assert max_err(lse, ref_lse) < 1e-2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")

@@ -1,0 +1,51 @@
+"""one2345_tpu_torch stands alone: it imports no JAX, no flax, nothing of
+one2345_tpu, and no PIL or cv2 (the machine with the card has neither), and
+its entry points run on the card unless the caller asks for the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "one2345_tpu", "PIL", "cv2")
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import one2345_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(one2345_tpu_torch.__path__, "one2345_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_package_imports_no_jax_and_nothing_of_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "one2345_tpu_torch.diffusion.zero123" in report["modules"]
+    assert "one2345_tpu_torch.ops.flash_attention" in report["modules"]
+    leaked = [
+        m for m in report["loaded"]
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert leaked == []
+
+
+def test_entry_point_defaults_to_the_card():
+    from one2345_tpu_torch.diffusion.zero123 import Zero123Stage, resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Zero123Stage()
