@@ -6,18 +6,28 @@
 Phases, one line each; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
-   in the checkout (one process per source, all started together);
-3. kernels: each kernel against its plain PyTorch version at every shape
-   the main path gives it (bf16 N(0, 1) inputs from a seeded generator),
-   with the kernel's, the plain version's and one library call's times
-   (CUDA events, after warm-up) and the kernel's bound on this card;
+   in the checkout (one process per source, all started together), with
+   ptxas's registers and spills;
+3. kernels: the forward kernel against its plain PyTorch version at every
+   shape the sampling path gives it, then the two backward kernels against
+   the plain backward at every shape the train step gives them (bf16
+   N(0, 1) inputs from a seeded generator), with the kernels', the plain
+   versions' and one library call's times (CUDA events, after warm-up) and
+   the kernels' bounds on this card;
 4. unet: one full-width Zero123-XL UNet eval (B=2) on the card (bf16, the
    kernels) against the same UNet on the CPU (f32, plain versions), with
    the same seeded weights and inputs;
-5. sampling: the image -> mesh path's four sampling phases at full width
+5. grad: the gradients of one full-width level-0 SpatialTransformer (B=2,
+   32x32 tokens) on the card (f32 weights, bf16 autocast, forward and
+   backward kernels) against the CPU (f32, plain versions);
+6. sampling: the image -> mesh path's four sampling phases at full width
    (stage 1 views 0-3, stage 2 of view 0, stage 1 of the second ring at the
    fallback polar angle of 90 degrees, stage 2 of the other 7 views), with
-   seeded non-zero weights.  Run twice; launches are counted on the second.
+   seeded non-zero weights.  Run twice; launches are counted on the second;
+7. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
+   remat, f32 weights, bf16 autocast): one cold step and five warm ones,
+   each timed, its launches counted, and the first one's gradients, params
+   and EMA checked.
 
 Then the kernels' JSON line, the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout.
@@ -41,8 +51,16 @@ PEAK_HBM_BYTES = 3.35e12
 
 O_TOL = 2e-2    # bf16 output, bf16 P in the P.V product
 LSE_TOL = 1e-2  # f32 statistics from bf16 scores
+# dQ, dK, dV: max abs error over max |ref| (bf16 P and dS in the products,
+# bf16 outputs); 6.2e-3 at most on an H100 80GB HBM3 at 700 W
+BWD_TOL = 1.5e-2
 UNET_TOL = 5e-2  # relative L2, bf16 UNet against the f32 one
+# relative L2 per parameter gradient, bf16 autocast against f32; 9.2e-3 at
+# most on an H100 80GB HBM3 at 700 W
+GRAD_TOL = 3e-2
 POLAR_DEG = 90.0  # the runner's fallback elevation (ElevationConfig.default_elevation)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6  # one cold, five warm
 
 # (name, B, T=S, H, D) of every flash-attention call on the main path:
 # level 0 at the CFG batch of 4 views (8) and of 28 views (56), then
@@ -55,6 +73,13 @@ ATTENTION_SHAPES = [
     ("mid_b56", 56, 16, 8, 160),
 ]
 HEADLINE_SHAPE = "level0_b56"  # the heaviest call: its numbers go in the JSON line
+# (name, T=S, D) of every attention backward of the train step (B=8, H=8)
+TRAIN_SHAPES = [("level0", 1024, 40), ("level1", 256, 80), ("level2", 64, 160), ("mid", 16, 160)]
+TRAIN_HEADLINE = "level0"
+# parameters no loss reads: the one-token cross-attention is the broadcast
+# of V, so its query and key projections and its pre-norm get no gradient,
+# as in the JAX package (jax.grad gives them zeros)
+DEAD = ("attn2.to_q.weight", "attn2.to_k.weight", "norm2.weight", "norm2.bias")
 
 
 def log(msg: str):
@@ -106,11 +131,11 @@ def seeded_state_dict(module, seed: int) -> dict:
     return out
 
 
-def input_image(size: int = 256):
+def input_image(size: int = 256, seed: int = 0):
     """A synthetic object on white: a shaded disc, seeded."""
     import numpy as np
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     img = np.ones((size, size, 3), np.float32)
     yy, xx = np.mgrid[:size, :size] / size
     disc = (yy - 0.5) ** 2 + (xx - 0.5) ** 2 < 0.09
@@ -199,29 +224,91 @@ def phase_kernels():
     return rows
 
 
+def phase_kernels_bwd():
+    """The dq and dkv kernels against the plain backward at the train
+    step's shapes, from the forward kernel's o and lse."""
+    import torch
+    import torch.nn.functional as F
+
+    from one2345_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    B, H = TRAIN_BATCH, 8
+    for i, (name, T, D) in enumerate(TRAIN_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        q, k, v, do = (
+            torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(4)
+        )
+        o, lse = fa.flash_attention(q, k, v)
+        dsum = fa.softmax_grad_rowsum(o, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum)
+        torch.cuda.synchronize()
+        refs = fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do)
+        abs_errs = [float((got.float() - ref).abs().max()) for got, ref in zip((dq, dk, dv), refs)]
+        errs = [e / float(ref.abs().max()) for e, ref in zip(abs_errs, refs)]
+        if not max(errs) <= BWD_TOL:
+            fail(f"flash attention backward {name}: dq/dk/dv errors {errs} (<= {BWD_TOL})")
+        iters = 50 if T >= 1024 else 200
+        dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum), iters)
+        dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum), iters)
+        plain_dq_ms = time_ms(lambda: fa.dq_reference(q, k, v, do, lse, dsum), max(iters // 5, 10))
+        plain_dkv_ms = time_ms(lambda: fa.dkv_reference(q, k, v, do, lse, dsum), max(iters // 5, 10))
+        # yardstick: the backward alone of PyTorch's fused attention (dQ, dK
+        # and dV in one call), same inputs and dtype
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves))
+        grad_out = do.transpose(1, 2)
+        sdpa_ms = time_ms(
+            lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True), iters
+        )
+        n = q.numel() * q.element_size()  # one [B, T, H, D] bf16 tensor
+        stats = 2 * B * H * T * 4  # lse and dsum, f32 [B, H, T]
+        row = {}
+        for kernel, flops, nbytes, ms, plain_ms, err in (
+            ("dq", 6.0 * B * H * T * T * D, 5 * n + stats, dq_ms, plain_dq_ms, abs_errs[0]),
+            ("dkv", 8.0 * B * H * T * T * D, 6 * n + stats, dkv_ms, plain_dkv_ms,
+             max(abs_errs[1:])),
+        ):
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            row[kernel] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tflops=flops / ms / 1e9,
+            )
+        rows[name] = row
+        log(
+            f"phase kernels: flash_attention backward {name} B={B} T=S={T} H={H} D={D}: "
+            f"dq/dk/dv err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} of max |ref| (<= {BWD_TOL}), "
+            f"abs {abs_errs[0]:.3e}/{abs_errs[1]:.3e}/{abs_errs[2]:.3e} | "
+            f"dq {dq_ms:.4f} ms (bound {row['dq']['bound_ms']:.4f}, {row['dq']['bound_by']}, "
+            f"{row['dq']['tflops']:.1f} TFLOP/s, plain {plain_dq_ms:.4f}) | "
+            f"dkv {dkv_ms:.4f} ms (bound {row['dkv']['bound_ms']:.4f}, {row['dkv']['bound_by']}, "
+            f"{row['dkv']['tflops']:.1f} TFLOP/s, plain {plain_dkv_ms:.4f}) | "
+            f"sdpa backward {sdpa_ms:.4f} ms"
+        )
+    return rows
+
+
 def phase_unet():
     import torch
 
     from one2345_tpu_torch.core.config import DiffusionConfig
-    from one2345_tpu_torch.diffusion.unet import UNetModel, cast_compute
+    from one2345_tpu_torch.diffusion.unet import cast_compute
+    from one2345_tpu_torch.diffusion.zero123 import make_unet
     from one2345_tpu_torch.ops.flash_attention import flash_attention
 
     u = DiffusionConfig().unet
-    kw = dict(
-        in_channels=u.in_channels, out_channels=u.out_channels,
-        model_channels=u.model_channels, num_res_blocks=u.num_res_blocks,
-        attention_resolutions=tuple(u.attention_resolutions),
-        channel_mult=tuple(u.channel_mult), num_heads=u.num_heads,
-        transformer_depth=u.transformer_depth, context_dim=u.context_dim,
-    )
     with torch.device("meta"):
-        shapes = UNetModel(**kw)
+        shapes = make_unet(u)
     weights = seeded_state_dict(shapes, seed=1)
     with torch.device("meta"):
-        cpu_unet = UNetModel(**kw)
+        cpu_unet = make_unet(u)
     cpu_unet.load_state_dict(weights, strict=True, assign=True)
     with torch.device("cuda"):
-        gpu_unet = UNetModel(**kw)
+        gpu_unet = make_unet(u)
     gpu_unet.load_state_dict(weights, strict=True)
     cast_compute(gpu_unet, torch.bfloat16)
 
@@ -251,6 +338,69 @@ def phase_unet():
     return weights
 
 
+def phase_grad():
+    """Gradients of one full-width level-0 SpatialTransformer: the card (f32
+    weights, bf16 autocast, the forward and backward kernels) against the
+    CPU (f32, plain versions), same seeded weights and inputs."""
+    import torch
+
+    from one2345_tpu_torch.diffusion.unet import SpatialTransformer
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+
+    C, heads, ctx_dim, B, L = 320, 8, 768, 2, 32
+    with torch.device("meta"):
+        shapes = SpatialTransformer(C, ctx_dim, heads, 1)
+    weights = seeded_state_dict(shapes, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(B, C, L, L, generator=gen)
+    ctx = torch.randn(B, 1, ctx_dim, generator=gen)
+    w = torch.randn(B, C, L, L, generator=gen)  # the loss is sum(out * w)
+    grads, launches = {}, None
+    for device in ("cpu", "cuda"):
+        with torch.device("meta"):
+            module = SpatialTransformer(C, ctx_dim, heads, 1)
+        module = module.to_empty(device=device)
+        module.load_state_dict(weights, strict=True)
+        f = flash_attention
+        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=device == "cuda"):
+            out = module(x.to(device), ctx.to(device))
+        (out.float() * w.to(device)).sum().backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+        grads[device] = {
+            k: None if p.grad is None else p.grad.float().cpu()
+            for k, p in module.named_parameters()
+        }
+    if launches != (1, 1, 1):
+        fail(f"SpatialTransformer fwd/dq/dkv launches {launches}, expected (1, 1, 1)")
+    rels = {}
+    for k, ref in grads["cpu"].items():
+        got = grads["cuda"][k]
+        if k.endswith(DEAD):
+            if ref is not None or got is not None:
+                fail(f"SpatialTransformer: {k} should get no gradient")
+            continue
+        if got is None or not torch.isfinite(got).all():
+            fail(f"SpatialTransformer: {k} gradient missing or not finite on the card")
+        rels[k] = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    for k in ("block0.attn1.to_q.weight", "block0.attn1.to_k.weight", "block0.attn1.to_v.weight"):
+        if not float(grads["cuda"][k].abs().max()) > 0:
+            fail(f"SpatialTransformer: {k} gradient is zero on the card")
+    worst = max(rels, key=rels.get)
+    if rels[worst] > GRAD_TOL:
+        fail(f"SpatialTransformer: {worst} gradient relative L2 {rels[worst]} (> {GRAD_TOL})")
+    attn1 = max(v for k, v in rels.items() if ".attn1." in k)
+    log(
+        f"phase grad: full-width level-0 SpatialTransformer B={B} T={L * L} C={C}: "
+        f"{len(rels)} parameter gradients, card bf16 autocast vs CPU f32 relative L2 "
+        f"worst {rels[worst]:.3e} ({worst}), attn1 worst {attn1:.3e} (<= {GRAD_TOL}); "
+        f"{len(grads['cpu']) - len(rels)} unread parameters without gradient on both; "
+        f"fwd/dq/dkv launches {launches}"
+    )
+
+
 def run_main_path(stage, image, timer):
     """The runner's four sampling phases (One2345Pipeline.run, with the
     elevation estimate pinned to its fallback)."""
@@ -269,25 +419,29 @@ def run_main_path(stage, image, timer):
     return stage1_images, torch.cat([s2_v0, rest])
 
 
-def phase_sampling(unet_weights, smi):
-    import torch
-
+def build_stage(unet_weights):
+    """The full-width Zero123 stage on the card with seeded weights, and the
+    f32 state dicts it was built from."""
     from one2345_tpu_torch.core.config import DiffusionConfig
-    from one2345_tpu_torch.core.profiling import Timer, unet_flops_per_eval
     from one2345_tpu_torch.diffusion.zero123 import Zero123Stage
-    from one2345_tpu_torch.ops.flash_attention import flash_attention
 
-    cfg = DiffusionConfig()
     t0 = time.perf_counter()
-    shapes = Zero123Stage(cfg, device="meta")
+    shapes = Zero123Stage(DiffusionConfig(), device="meta")
     params = {"unet": unet_weights}
     for i, name in enumerate(("encoder", "decoder", "clip", "cc_projection")):
         params[name] = seeded_state_dict(getattr(shapes, name), seed=10 + i)
-    stage = Zero123Stage(cfg, params=params, device="cuda")
-    del shapes, params
-    log(f"phase sampling: stage built with seeded weights in {time.perf_counter() - t0:.1f} s")
+    stage = Zero123Stage(DiffusionConfig(), params=params, device="cuda")
+    log(f"stage built with seeded weights in {time.perf_counter() - t0:.1f} s")
+    return stage, params
 
-    image = input_image(cfg.image_size)
+
+def phase_sampling(stage, smi):
+    import torch
+
+    from one2345_tpu_torch.core.profiling import Timer, unet_flops_per_eval
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+
+    image = input_image(stage.config.image_size)
     evals = {"stage1": 76, "stage2_view0": 49, "stage1_ring2": 76, "stage2_rest": 49}
     batch = {"stage1": 8, "stage2_view0": 8, "stage1_ring2": 8, "stage2_rest": 56}
     flops = sum(n * unet_flops_per_eval(batch[k]) for k, n in evals.items())
@@ -324,6 +478,125 @@ def phase_sampling(unet_weights, smi):
     return launches
 
 
+def train_batch(B: int):
+    """A synthetic finetune batch on the card: target and conditioning
+    images in [-1, 1] and the pose tokens of seeded camera pairs."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.training.data import relative_pose_token
+
+    rng = np.random.default_rng(7)
+
+    def camera():
+        c2w = np.eye(4)
+        d = rng.normal(size=3)
+        c2w[:3, 3] = d / np.linalg.norm(d) * rng.uniform(1.5, 2.2)
+        return c2w
+
+    batch = {
+        "image_target": np.stack([input_image(256, seed=20 + i) for i in range(B)]) * 2 - 1,
+        "image_cond": np.stack([input_image(256, seed=40 + i) for i in range(B)]) * 2 - 1,
+        "T": np.stack([relative_pose_token(camera(), camera()) for _ in range(B)])[:, None],
+    }
+    return {k: torch.as_tensor(v, dtype=torch.float32, device="cuda") for k, v in batch.items()}
+
+
+def phase_train(stage, params, smi):
+    """Six full-width finetune steps; returns the backward kernels' launches."""
+    import torch
+
+    from one2345_tpu_torch.core.profiling import unet_flops_per_eval
+    from one2345_tpu_torch.ops.flash_attention import flash_attention as f
+    from one2345_tpu_torch.training.zero123_trainer import Zero123Trainer
+
+    t0 = time.perf_counter()
+    trainer = Zero123Trainer(
+        stage, {k: params[k] for k in ("unet", "cc_projection")}, remat=True, device="cuda"
+    )
+    named = [
+        (f"{m}.{k}", p) for m, module in trainer.modules.items()
+        for k, p in module.named_parameters()
+    ]
+    start = [p.detach().clone() for _, p in named]
+    n_params = sum(p.numel() for _, p in named)
+    batch = train_batch(TRAIN_BATCH)
+    log(
+        f"phase train: Zero123Trainer at full width, {n_params / 1e6:.1f} M f32 trainable "
+        f"parameters in {len(named)} tensors, remat, bf16 autocast, B={TRAIN_BATCH}, "
+        f"built in {time.perf_counter() - t0:.1f} s"
+    )
+    # model FLOPs: UNet forward + backward (3x the forward); the remat
+    # recompute, the frozen towers and the optimizer are not counted
+    flops = 3 * unet_flops_per_eval(TRAIN_BATCH)
+    totals = [0, 0, 0]
+    warm = []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+        totals = [a + b for a, b in zip(totals, counts)]
+        loss = float(loss)
+        if counts != (32, 16, 16):
+            fail(f"train step {step + 1}: fwd/dq/dkv launches {counts}, expected (32, 16, 16)")
+        if not math.isfinite(loss):
+            fail(f"train step {step + 1}: loss {loss}")
+        extra = ""
+        if step == 0:
+            extra = " | " + check_first_step(trainer, named, start)
+        else:
+            warm.append(dt)
+        log(
+            f"phase train ({'cold' if step == 0 else 'warm'}) step {step + 1}: {dt:.4f} s, "
+            f"loss {loss:.5f}, {TRAIN_BATCH / dt:.2f} samples/s, "
+            f"UNet MFU {flops / dt / PEAK_BF16_FLOPS:.4f} ({flops / 1e12:.2f} TFLOP/step), "
+            f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"fwd/dq/dkv launches {counts}{extra}"
+        )
+    mean = sum(warm) / len(warm)
+    log(
+        f"phase train: {len(warm)} warm steps mean {mean:.4f} s (min {min(warm):.4f}, max "
+        f"{max(warm):.4f}), {TRAIN_BATCH / mean:.2f} samples/s, UNet MFU "
+        f"{flops / mean / PEAK_BF16_FLOPS:.4f} | {smi}"
+    )
+    return totals
+
+
+def check_first_step(trainer, named, start) -> str:
+    """After the first step: every read parameter has a finite, non-zero
+    gradient, the unread ones an exact zero, and the params and EMA moved."""
+    import torch
+
+    dead, bad = 0, []
+    for name, p in named:
+        g = p.grad
+        if name.endswith(DEAD):
+            dead += 1
+            if g is None or torch.count_nonzero(g) != 0:
+                bad.append(name)
+        elif g is None or not torch.isfinite(g).all() or not float(g.abs().max()) > 0:
+            bad.append(name)
+    if bad:
+        fail(f"train step 1: gradient missing, zero or not finite for {bad[:8]} ({len(bad)})")
+    attn1 = sum(".attn1.to_" in name for name, _ in named)
+    ema = [t for d in trainer.ema.values() for t in d.values()]
+    total = sum(p.numel() for _, p in named)
+    moved = sum(int(torch.count_nonzero(p.detach() != s)) for (_, p), s in zip(named, start))
+    ema_moved = sum(int(torch.count_nonzero(e != s)) for e, s in zip(ema, start))
+    if not (moved > 0 and ema_moved > 0):
+        fail(f"train step 1: params moved {moved}, EMA moved {ema_moved} of {total}")
+    return (
+        f"{len(named) - dead} gradients finite and non-zero (of them {attn1} attn1 "
+        f"projection tensors), {dead} unread parameters with zero gradient; params moved "
+        f"{moved / total:.4f}, EMA {ema_moved / total:.4f} of {total} elements"
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -341,8 +614,12 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
+    bwd_rows = phase_kernels_bwd()
     unet_weights = phase_unet()
-    launches = phase_sampling(unet_weights, smi)
+    phase_grad()
+    stage, params = build_stage(unet_weights)
+    launches = phase_sampling(stage, smi)
+    _, dq_launches, dkv_launches = phase_train(stage, params, smi)
 
     head = rows[HEADLINE_SHAPE]
     kernels = [{
@@ -358,6 +635,21 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
     }]
+    for kernel, line, n in (("dq", 71, dq_launches), ("dkv", 99, dkv_launches)):
+        row = bwd_rows[TRAIN_HEADLINE][kernel]
+        kernels.append({
+            "name": f"flash_attention_bwd_{kernel}",
+            "route": "cuda",
+            "source": "one2345_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"one2345_tpu/ops/flash_attention.py:{line}",
+            "launches": n,
+            "max_abs_err": max(r[kernel]["max_abs_err"] for r in bwd_rows.values()),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

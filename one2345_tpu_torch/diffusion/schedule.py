@@ -2,8 +2,8 @@
 
 The numpy construction is the JAX package's ``diffusion/schedule.py``, bit
 for bit: the 'linear' (sqrt-linear-squared) beta schedule, 'uniform' DDIM
-timesteps with the +1 offset, and the DDIM sigmas.  Kept quirk: stride
-1000//S over the full range, so S=75 yields 77 entries.
+timesteps with the +1 offset, the DDIM sigmas, and the training buffers.
+Kept quirk: stride 1000//S over the full range, so S=75 yields 77 entries.
 """
 
 from __future__ import annotations
@@ -77,6 +77,22 @@ def make_ddim_schedule(
         sigmas=sigmas[rev].astype(np.float32),
         sqrt_one_minus_alphas=np.sqrt(1.0 - alphas[rev]).astype(np.float32),
     )
+
+
+def training_schedule(
+    n_timestep: int = 1000, linear_start: float = 0.00085, linear_end: float = 0.0120
+) -> dict:
+    """Buffers used by q_sample / p_losses (ddpm.py:126-178), numpy f32."""
+    betas = make_beta_schedule(n_timestep, linear_start, linear_end)
+    alphas_cumprod = np.cumprod(1.0 - betas)
+    return {
+        "betas": betas.astype(np.float32),
+        "alphas_cumprod": alphas_cumprod.astype(np.float32),
+        "sqrt_alphas_cumprod": np.sqrt(alphas_cumprod).astype(np.float32),
+        "sqrt_one_minus_alphas_cumprod": np.sqrt(1.0 - alphas_cumprod).astype(
+            np.float32
+        ),
+    }
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:

@@ -9,9 +9,14 @@ so ``utils/convert_jax.py`` maps the flax parameter tree mechanically.
 - Compute dtype is the dtype of the conv / linear weights (bf16 on the card,
   f32 for CPU parity; see ``cast_compute``).  Norms keep f32 parameters and
   compute in f32; the output is f32.
-- Multi-token self-attention runs ``ops.flash_attention`` (the CUDA kernel
-  on the card, which takes bf16 only: an f32 UNet runs on the CPU); the
-  one-token cross-attention is the exact broadcast of V.
+- Multi-token self-attention runs ``ops.flash_attention`` (the CUDA
+  kernels on the card, forward and backward, which take bf16 only: an f32
+  UNet runs on the CPU, or on the card under bf16 autocast); the one-token
+  cross-attention is the exact broadcast of V.
+- ``remat=True`` recomputes each ResBlock and SpatialTransformer in the
+  backward pass (``torch.utils.checkpoint``), as ``UNetModel.remat`` of the
+  JAX package does with ``nn.remat``: the same gradients for less
+  activation memory.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from one2345_tpu_torch.diffusion.schedule import timestep_embedding
 from one2345_tpu_torch.ops.flash_attention import flash_attention
@@ -198,9 +204,11 @@ class UNetModel(nn.Module):
         num_heads: int = 8,
         transformer_depth: int = 1,
         context_dim: int = 768,
+        remat: bool = False,
     ):
         super().__init__()
         mc = model_channels
+        self.remat = remat
         emb_dim = mc * 4
         self.model_channels = mc
         self.time_embed_0 = nn.Linear(mc, emb_dim)
@@ -274,11 +282,15 @@ class UNetModel(nn.Module):
 
         h = self.conv_in(x.permute(0, 3, 1, 2).to(dt))
         hs = [h]
+        remat = self.remat and torch.is_grad_enabled()
         for kind, name in self._plan:
-            if kind == "res":
-                h = getattr(self, name)(h, emb)
-            elif kind == "attn":
-                h = getattr(self, name)(h, context)
+            if kind in ("res", "attn"):
+                block = getattr(self, name)
+                cond = emb if kind == "res" else context
+                if remat:
+                    h = checkpoint(block, h, cond, use_reentrant=False)
+                else:
+                    h = block(h, cond)
             elif kind == "mod":
                 h = getattr(self, name)(h)
             elif kind == "push":

@@ -1,4 +1,5 @@
-"""SD AutoencoderKL (first-stage VAE): ``Encoder``, ``Decoder``, ``moments_mode``.
+"""SD AutoencoderKL (first-stage VAE): ``Encoder``, ``Decoder``, and the
+posterior's ``moments_mode`` and ``moments_sample``.
 
 Counterpart of ``one2345_tpu/diffusion/vae.py`` with the same submodule
 names.  Public layouts are NHWC (images [B, 256, 256, 3], latents
@@ -148,3 +149,12 @@ class Decoder(nn.Module):
 def moments_mode(moments: torch.Tensor) -> torch.Tensor:
     """DiagonalGaussianDistribution.mode() = mean (first half of moments)."""
     return moments.chunk(2, dim=-1)[0]
+
+
+def moments_sample(moments: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """DiagonalGaussianDistribution.sample() with the standard normal draw
+    ``noise`` (shape of the mean) given by the caller; logvar clipped to
+    [-30, 20]."""
+    mean, logvar = moments.chunk(2, dim=-1)
+    logvar = torch.clamp(logvar, -30.0, 20.0)
+    return mean + torch.exp(0.5 * logvar) * noise

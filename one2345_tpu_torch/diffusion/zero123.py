@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from one2345_tpu_torch.core.config import DiffusionConfig
+from one2345_tpu_torch.core.config import DiffusionConfig, UNetConfig
 from one2345_tpu_torch.diffusion.clip import CLIPVisionTower, preprocess_for_clip
 from one2345_tpu_torch.diffusion.ddim import ddim_sample, trim_for_sample
 from one2345_tpu_torch.diffusion.schedule import DDIMSchedule, make_ddim_schedule
@@ -62,6 +62,22 @@ class CCProjection(nn.Module):
 
     def forward(self, x):
         return x @ self.kernel + self.bias
+
+
+def make_unet(u: UNetConfig, remat: bool = False) -> UNetModel:
+    """The UNet of a config, built on the current default device."""
+    return UNetModel(
+        in_channels=u.in_channels,
+        out_channels=u.out_channels,
+        model_channels=u.model_channels,
+        num_res_blocks=u.num_res_blocks,
+        attention_resolutions=tuple(u.attention_resolutions),
+        channel_mult=tuple(u.channel_mult),
+        num_heads=u.num_heads,
+        transformer_depth=u.transformer_depth,
+        context_dim=u.context_dim,
+        remat=remat,
+    )
 
 
 def noise_seed(seed: int, view_id: int, draw: int) -> int:
@@ -109,17 +125,7 @@ class Zero123Stage:
         cuda = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda), self.device:
             torch.manual_seed(seed)
-            self.unet = UNetModel(
-                in_channels=cfg.unet.in_channels,
-                out_channels=cfg.unet.out_channels,
-                model_channels=cfg.unet.model_channels,
-                num_res_blocks=cfg.unet.num_res_blocks,
-                attention_resolutions=tuple(cfg.unet.attention_resolutions),
-                channel_mult=tuple(cfg.unet.channel_mult),
-                num_heads=cfg.unet.num_heads,
-                transformer_depth=cfg.unet.transformer_depth,
-                context_dim=cfg.unet.context_dim,
-            )
+            self.unet = make_unet(cfg.unet)
             vae = dict(
                 base_channels=cfg.vae.base_channels,
                 channel_mult=tuple(cfg.vae.channel_mult),

@@ -3,7 +3,8 @@
 ``zero123_from_jax(params)`` takes ``one2345_tpu``'s ``Zero123Stage.params``
 (nested dicts of arrays, keys 'unet', 'encoder', 'decoder', 'clip',
 'cc_projection', each a flax variables dict) and returns one state dict per
-module, which the port's modules load with ``strict=True``.
+module, which the port's modules load with ``strict=True``;
+``trainable_from_jax`` does the same for the trainer's trainable tree.
 
 The port names its submodules after the flax scopes, so the mapping is
 mechanical:
@@ -56,14 +57,25 @@ def flax_to_state_dict(variables: Mapping, free=()) -> dict:
     return out
 
 
+def trainable_from_jax(tree: Mapping) -> dict:
+    """The JAX trainer's trainable tree {'unet', 'cc_projection'} -> the
+    state dicts ``training.zero123_trainer.Zero123Trainer`` takes.
+
+    The mapping only renames and transposes, so a tree of gradients maps to
+    the gradients of the mapped weights."""
+    return {
+        "unet": flax_to_state_dict(tree["unet"]),
+        "cc_projection": flax_to_state_dict(tree["cc_projection"], free=("kernel", "bias")),
+    }
+
+
 def zero123_from_jax(params: Mapping) -> dict:
     """JAX ``Zero123Stage.params`` -> {module name: torch state dict}."""
     return {
-        "unet": flax_to_state_dict(params["unet"]),
+        **trainable_from_jax(params),
         "encoder": flax_to_state_dict(params["encoder"]),
         "decoder": flax_to_state_dict(params["decoder"]),
         "clip": flax_to_state_dict(
             params["clip"], free=("class_embedding", "positional_embedding", "proj")
         ),
-        "cc_projection": flax_to_state_dict(params["cc_projection"], free=("kernel", "bias")),
     }

@@ -1,9 +1,10 @@
 """one2345_tpu_torch.ops.flash_attention against the JAX flash attention.
 
-On the CPU the wrapper runs its plain version, ``attention_reference``; it
-is held against the Pallas kernel (interpret mode) and against XLA's
-attention.  The CUDA kernel itself is compared with the same plain version
-on the card (the ``cuda`` test below, and chip_smoke.py).
+On the CPU the wrapper runs its plain versions, ``attention_reference`` and
+``attention_backward_reference``; they are held against the Pallas kernels
+(interpret mode, forward and ``jax.grad``), XLA's attention and torch
+autograd.  The CUDA kernels themselves are compared with the same plain
+versions on the card (the ``cuda`` tests below, and chip_smoke.py).
 """
 
 import jax
@@ -106,6 +107,82 @@ def test_wrapper_refuses_mixed_devices():
         fa.flash_attention(q, q.to("meta"), q)
 
 
+def _autograd_grads(q, k, v, w):
+    """(dq, dk, dv) of sum(attention_reference(q, k, v)[0] * w) by autograd."""
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out, _ = fa.attention_reference(*leaves)
+    (out * torch.from_numpy(w)).sum().backward()
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize(
+    "T,S,D", [(64, 64, 40), (256, 256, 80), (64, 64, 160), (16, 16, 160), (64, 16, 160)]
+)
+def test_backward_reference_matches_autograd(T, S, D):
+    """The plain FA2 backward (P from lse, Dsum, dP, dS) against autograd
+    through the plain forward, at UNet widths and ragged T, S below any
+    64-row tile; both f32: only summation order differs."""
+    q, k, v = _qkv(2, T, S, 4, D, seed=T + S + D)
+    w = np.random.default_rng(D).standard_normal((2, T, 4, D)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = fa.attention_reference(tq, tk, tv)
+    grads = fa.attention_backward_reference(tq, tk, tv, out, lse, torch.from_numpy(w))
+    for got, ref in zip(grads, _autograd_grads(q, k, v, w)):
+        assert got.dtype == torch.float32
+        assert max_err(got, ref) < 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("T,S,D", [(256, 256, 40), (320, 256, 64)])
+def test_backward_matches_pallas_grad(T, S, D, interpret_pallas):
+    """The port's gradient (the autograd Function on the CPU: plain forward
+    and backward) against jax.grad through the JAX flash attention, whose
+    custom_vjp runs the Pallas backward kernels in interpret mode: the
+    shapes and bound of tests/test_flash_attention.py (Pallas dots run at
+    MXU precision, bf16 inputs, even in interpret mode)."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.normal(size=(1, L, 2, D)).astype(np.float32) for L in (T, S, S))
+    w = rng.normal(size=(1, T, 2, D)).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_fa.flash_attention(q, k, v, block_q=128, block_kv=128) * w)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out, _ = fa.flash_attention(*leaves)
+    (out * torch.from_numpy(w)).sum().backward()
+    for leaf, r in zip(leaves, ref):
+        assert max_err(leaf.grad, r) < 5e-3 * max(float(jnp.max(jnp.abs(r))), 1.0)
+
+
+def test_function_carries_gradients_to_q_k_and_v():
+    """The forward is an autograd Function: its output has a grad_fn and
+    backward() reaches q, k and v (the fault this guards against: a kernel
+    output with no graph, so every projection before the attention gets no
+    gradient).  The logsumexp is not differentiable.  On the CPU nothing is
+    launched."""
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(2, 64, 64, 2, 40, seed=9))
+    counts = _counts()
+    out, lse = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None and not lse.requires_grad
+    out.square().sum().backward()
+    for x in (q, k, v):
+        assert x.grad is not None and torch.isfinite(x.grad).all()
+        assert float(x.grad.abs().max()) > 0
+    assert _counts() == counts
+
+
+def test_backward_refuses_mixed_devices():
+    q = torch.zeros(1, 16, 2, 40)
+    lse = torch.zeros(1, 2, 16)
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q, q, q, q, lse, q.to("meta"))
+
+
+def _counts():
+    f = fa.flash_attention
+    return f.launch_count, f.dq_launch_count, f.dkv_launch_count
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "B,T,D", [(8, 1024, 40), (56, 1024, 40), (56, 256, 80), (56, 64, 160), (56, 16, 160)]
@@ -124,6 +201,29 @@ def test_kernel_matches_plain_version_on_card(B, T, D, cuda_device):
     # bf16 output and bf16 P in the P.V product: ~1e-2 absolute
     assert max_err(out.float(), ref_out) < 2e-2
     assert max_err(lse, ref_lse) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D", [(1024, 40), (256, 80), (64, 160), (16, 160)])
+def test_backward_kernels_match_plain_version_on_card(T, D, cuda_device):
+    """K2 (dq and dkv kernels) at the train step's shapes (B=8, 8 heads)
+    against the plain backward in f32 from the same bf16 inputs and the
+    forward kernel's o and lse; errors relative to max |ref| (bf16 P and dS
+    in the products, bf16 outputs: 6.2e-3 at most on an H100)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T + D)
+    q, k, v, do = (
+        torch.randn(8, T, 8, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    o, lse = fa.flash_attention(q, k, v)
+    counts = _counts()
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    refs = fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do)
+    assert _counts() == (counts[0], counts[1] + 1, counts[2] + 1)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == torch.bfloat16
+        assert max_err(got.float(), ref) < 1.5e-2 * float(ref.abs().max())
 
 
 @pytest.fixture

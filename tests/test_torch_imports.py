@@ -1,6 +1,7 @@
-"""one2345_tpu_torch stands alone: it imports no JAX, no flax, nothing of
-one2345_tpu, and no PIL or cv2 (the machine with the card has neither), and
-its entry points run on the card unless the caller asks for the CPU."""
+"""one2345_tpu_torch stands alone: it imports no JAX, no flax, no optax,
+nothing of one2345_tpu, and no PIL or cv2 (the machine with the card has
+neither), and its entry points run on the card unless the caller asks for
+the CPU."""
 
 import json
 import os
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "one2345_tpu", "PIL", "cv2")
+FORBIDDEN = ("jax", "flax", "optax", "one2345_tpu", "PIL", "cv2")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -32,8 +33,13 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
     )
     assert res.returncode == 0, res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "one2345_tpu_torch.diffusion.zero123" in report["modules"]
-    assert "one2345_tpu_torch.ops.flash_attention" in report["modules"]
+    for module in (
+        "one2345_tpu_torch.diffusion.zero123",
+        "one2345_tpu_torch.ops.flash_attention",
+        "one2345_tpu_torch.training.data",
+        "one2345_tpu_torch.training.zero123_trainer",
+    ):
+        assert module in report["modules"]
     leaked = [
         m for m in report["loaded"]
         if m.split(".")[0] in FORBIDDEN
@@ -49,3 +55,18 @@ def test_entry_point_defaults_to_the_card():
         pytest.skip("a card is present: the default device resolves to it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Zero123Stage()
+
+
+def test_backward_wrappers_and_trainer_are_in_the_package():
+    from one2345_tpu_torch.ops import flash_attention as fa
+    from one2345_tpu_torch.ops._build import KERNELS
+    from one2345_tpu_torch.training.zero123_trainer import Zero123Trainer
+
+    assert KERNELS == ("flash_attention_fwd", "flash_attention_bwd")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_backward"):
+        assert callable(getattr(fa, name))
+    assert fa.flash_attention.dq_launch_count >= 0 and fa.flash_attention.dkv_launch_count >= 0
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Zero123Trainer(None, {})
