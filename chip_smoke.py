@@ -7,13 +7,15 @@ Phases, one line each; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
    in the checkout (one process per source, all started together), with
-   ptxas's registers and spills;
+   ptxas's registers, shared memory and spills for every instance; any
+   spill fails the run;
 3. kernels: the forward kernel against its plain PyTorch version at every
-   shape the sampling path gives it, then the two backward kernels against
-   the plain backward at every shape the train step gives them (bf16
-   N(0, 1) inputs from a seeded generator), with the kernels', the plain
-   versions' and one library call's times (CUDA events, after warm-up) and
-   the kernels' bounds on this card;
+   shape the sampling path gives it and at two ragged shapes (16-byte and
+   4-byte copies), then the two backward kernels against the plain
+   backward at every shape the train step gives them (bf16 N(0, 1) inputs
+   from a seeded generator), with the kernels', the plain versions' and
+   one library call's times (CUDA events, after warm-up) and each kernel's
+   bound on this card;
 4. unet: one full-width Zero123-XL UNet eval (B=2) on the card (bf16, the
    kernels) against the same UNet on the CPU (f32, plain versions), with
    the same seeded weights and inputs;
@@ -27,7 +29,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
 7. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
    remat, f32 weights, bf16 autocast): one cold step and five warm ones,
    each timed, its launches counted, and the first one's gradients, params
-   and EMA checked.
+   and EMA checked;
+8. device times: each kernel's device time per launch (torch.profiler) at
+   the shapes of phase 3, after the timed phases 6 and 7, which a profiled
+   run can slow on the host.
 
 Then the kernels' JSON line, the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout.
@@ -38,6 +43,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +54,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # 700 W runs slower, so every time is printed beside the power limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# exp2 results per clock per SM on the special-function unit (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0); the card's rate is this x SMs x its maximum SM clock
+EXP2_PER_CLOCK_PER_SM = 16
 
 O_TOL = 2e-2    # bf16 output, bf16 P in the P.V product
 LSE_TOL = 1e-2  # f32 statistics from bf16 scores
@@ -73,6 +83,9 @@ ATTENTION_SHAPES = [
     ("mid_b56", 56, 16, 8, 160),
 ]
 HEADLINE_SHAPE = "level0_b56"  # the heaviest call: its numbers go in the JSON line
+# (name, B, T, S, H, D, copy width in bytes) of the forward's ragged checks:
+# T and S not multiples of the tiles, and D not a multiple of 8
+RAGGED_SHAPES = [("ragged_16b", 2, 1000, 1000, 8, 40, 16), ("ragged_4b", 3, 77, 200, 4, 42, 4)]
 # (name, T=S, D) of every attention backward of the train step (B=8, H=8)
 TRAIN_SHAPES = [("level0", 1024, 40), ("level1", 256, 80), ("level2", 64, 160), ("mid", 16, 160)]
 TRAIN_HEADLINE = "level0"
@@ -103,6 +116,59 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_us(evt) -> float:
+    """Device time of a profiler row in microseconds (the attribute's name
+    depends on the torch version)."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_ms_per_launch(fn, kernel: str, iters: int) -> tuple[float, int]:
+    """(device ms per launch, recorded launches) of the kernel whose name
+    contains ``kernel``: torch.profiler over ``iters`` calls of ``fn``, the
+    kernel's device time over its recorded launches.  The profiler can drop
+    records (on an H100 it kept 33 of 50 once), so a profiled run that
+    recorded fewer than 0.9 * ``iters`` launches is made again, up to three
+    runs in all.  Fails if none recorded that many, or if one recorded more
+    than one launch per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages() if kernel in r.key and device_time_us(r) > 0]
+        launches = sum(r.count for r in rows)
+        if launches > iters:
+            fail(f"profiler: {launches} launches of {kernel} recorded in {iters} calls")
+        if launches >= 0.9 * iters:
+            return sum(device_time_us(r) for r in rows) / launches / 1e3, launches
+        counts.append(launches)
+    fail(f"profiler: {counts} launches of {kernel} recorded in three profiled runs of {iters} calls")
+
+
+def kernel_bound(flops: float, nbytes: float, n_exp: float, exp_rate: float):
+    """(ms, bound_by, terms): the least time the card could take for a
+    kernel's work, the largest of its tensor-core operations at the bf16
+    peak, its bytes (each input read once, each output written once) at the
+    HBM rate, and its exp2 evaluations at the exp unit's rate; ``terms``
+    holds all three in ms."""
+    terms = {
+        "operations": flops / PEAK_BF16_FLOPS * 1e3,
+        "bytes": nbytes / PEAK_HBM_BYTES * 1e3,
+        "exp": n_exp / exp_rate * 1e3,
+    }
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
 
 
 def seeded_state_dict(module, seed: int) -> dict:
@@ -154,15 +220,25 @@ def phase_device():
     if res.returncode != 0 or not res.stdout.strip():
         fail(f"nvidia-smi: {res.stderr.strip()}")
     smi = res.stdout.strip().splitlines()[0]
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi clocks.max.sm: {res.stderr.strip()}")
+    sm_mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_rate = EXP2_PER_CLOCK_PER_SM * sms * sm_mhz * 1e6
     # fp32 matmuls and cuDNN convs in full f32 (cuDNN defaults to TF32):
     # the plain versions here are references
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(
         f"phase device: {smi} | {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
-        f" | torch {torch.__version__} cuda {torch.version.cuda} | tf32 off"
+        f" | torch {torch.__version__} cuda {torch.version.cuda} | tf32 off | {sms} SMs, "
+        f"max SM clock {sm_mhz:.0f} MHz: exp2 {exp_rate / 1e12:.3f}e12/s"
     )
-    return smi
+    return smi, exp_rate
 
 
 def phase_build():
@@ -171,60 +247,124 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     dt = time.perf_counter() - t0
+    spills = []
     for name in libs:
-        report = [
-            line.strip() for line in _build.build_log(name).splitlines()
-            if "registers" in line or "spill" in line or "Compiling entry" in line
-        ]
-        for line in report:
-            log(f"  ptxas {name}: {line}")
-    log(f"phase build: {len(libs)} kernel(s) in {dt:.2f} s: {', '.join(sorted(libs))}")
+        entry = None
+        for line in _build.build_log(name).splitlines():
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1)
+            if "registers" in line or "spill" in line or found:
+                log(f"  ptxas {name}: {line.strip()}")
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if found and (int(found.group(1)) or int(found.group(2))):
+                spills.append(f"{entry}: {line.strip()}")
+    if spills:
+        fail("ptxas spills registers in " + "; ".join(spills))
+    log(
+        f"phase build: {len(libs)} kernel(s) in {dt:.2f} s, no spills: {', '.join(sorted(libs))}"
+    )
 
 
-def phase_kernels():
+def check_forward(name: str, q, k, v):
+    """The forward kernel against its plain version on the same bf16
+    inputs: (max |O err|, max |lse err|); fails beyond O_TOL or LSE_TOL."""
     import torch
-    import torch.nn.functional as F
 
     from one2345_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 
+    o, lse = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = attention_reference(q.float(), k.float(), v.float())
+    err_o = float((o.float() - ref_o).abs().max())
+    err_lse = float((lse - ref_lse).abs().max())
+    if not (err_o <= O_TOL and err_lse <= LSE_TOL):
+        fail(f"flash_attention {name}: O err {err_o} (<= {O_TOL}), lse err {err_lse} (<= {LSE_TOL})")
+    return err_o, err_lse
+
+
+def forward_inputs(i: int):
+    """Seeded bf16 N(0, 1) q, k, v of ATTENTION_SHAPES[i], and its launches per timing."""
+    import torch
+
+    _, B, T, H, D = ATTENTION_SHAPES[i]
+    gen = torch.Generator(device="cuda").manual_seed(100 + i)
+    q, k, v = (
+        torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        for _ in range(3)
+    )
+    return q, k, v, 50 if B * T >= 8192 else 200
+
+
+def backward_inputs(i: int):
+    """Seeded bf16 N(0, 1) q, k, v, dO of TRAIN_SHAPES[i] (B=TRAIN_BATCH, H=8),
+    the forward kernel's o and lse, Dsum, and the launches per timing."""
+    import torch
+
+    from one2345_tpu_torch.ops import flash_attention as fa
+
+    _, T, D = TRAIN_SHAPES[i]
+    gen = torch.Generator(device="cuda").manual_seed(200 + i)
+    q, k, v, do = (
+        torch.randn(TRAIN_BATCH, T, 8, D, generator=gen, device="cuda").to(torch.bfloat16)
+        for _ in range(4)
+    )
+    o, lse = fa.flash_attention(q, k, v)
+    return q, k, v, do, o, lse, fa.softmax_grad_rowsum(o, do), 50 if T >= 1024 else 200
+
+
+def phase_kernels(exp_rate: float):
+    import torch
+    import torch.nn.functional as F
+
+    from one2345_tpu_torch.ops.flash_attention import (
+        attention_reference,
+        copy_bytes,
+        flash_attention,
+    )
+
     rows = {}
     for i, (name, B, T, H, D) in enumerate(ATTENTION_SHAPES):
-        gen = torch.Generator(device="cuda").manual_seed(100 + i)
-        q, k, v = (
-            torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(3)
-        )
-        o, lse = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref_o, ref_lse = attention_reference(q.float(), k.float(), v.float())
-        err_o = float((o.float() - ref_o).abs().max())
-        err_lse = float((lse - ref_lse).abs().max())
-        if not (err_o <= O_TOL and err_lse <= LSE_TOL):
-            fail(f"flash_attention {name}: O err {err_o} (<= {O_TOL}), lse err {err_lse} (<= {LSE_TOL})")
-        iters = 50 if B * T >= 8192 else 200
+        q, k, v, iters = forward_inputs(i)
+        err_o, err_lse = check_forward(name, q, k, v)
         ms = time_ms(lambda: flash_attention(q, k, v), iters)
         plain_ms = time_ms(lambda: attention_reference(q, k, v), max(iters // 5, 10))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters)
         flops = 4.0 * B * H * T * T * D
-        nbytes = 4.0 * q.numel() * q.element_size() + lse.numel() * 4
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        nbytes = 4.0 * q.numel() * q.element_size() + B * H * T * 4  # Q, K, V, O; lse
+        bound_ms, bound_by, terms = kernel_bound(flops, nbytes, B * H * T * T, exp_rate)
         rows[name] = dict(
-            max_abs_err=err_o, lse_err=err_lse, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            max_abs_err=err_o, lse_err=err_lse, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms, flops=flops,
         )
         log(
-            f"phase kernels: flash_attention {name} B={B} T=S={T} H={H} D={D}: "
+            f"phase kernels: flash_attention {name} B={B} T=S={T} H={H} D={D} "
+            f"({copy_bytes(q, k, v)}-byte copies): "
             f"O err {err_o:.3e} (<= {O_TOL}) lse err {err_lse:.3e} (<= {LSE_TOL}) | "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-            f"bound {max(t_ops, t_bytes):.4f} ms ({rows[name]['bound_by']}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s"
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+        )
+    for i, (name, B, T, S, H, D, width) in enumerate(RAGGED_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(150 + i)
+        q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (
+            torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2)
+        )
+        if copy_bytes(q, k, v) != width:
+            fail(f"flash_attention {name}: {copy_bytes(q, k, v)}-byte copies, expected {width}")
+        err_o, err_lse = check_forward(name, q, k, v)
+        rows[name] = dict(max_abs_err=err_o, lse_err=err_lse)
+        log(
+            f"phase kernels: flash_attention {name} B={B} T={T} S={S} H={H} D={D} "
+            f"({width}-byte copies): O err {err_o:.3e} (<= {O_TOL}) lse err {err_lse:.3e} "
+            f"(<= {LSE_TOL})"
         )
     return rows
 
 
-def phase_kernels_bwd():
+def phase_kernels_bwd(exp_rate: float):
     """The dq and dkv kernels against the plain backward at the train
     step's shapes, from the forward kernel's o and lse."""
     import torch
@@ -235,13 +375,7 @@ def phase_kernels_bwd():
     rows = {}
     B, H = TRAIN_BATCH, 8
     for i, (name, T, D) in enumerate(TRAIN_SHAPES):
-        gen = torch.Generator(device="cuda").manual_seed(200 + i)
-        q, k, v, do = (
-            torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
-            for _ in range(4)
-        )
-        o, lse = fa.flash_attention(q, k, v)
-        dsum = fa.softmax_grad_rowsum(o, do)
+        q, k, v, do, o, lse, dsum, iters = backward_inputs(i)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum)
         torch.cuda.synchronize()
@@ -250,7 +384,6 @@ def phase_kernels_bwd():
         errs = [e / float(ref.abs().max()) for e, ref in zip(abs_errs, refs)]
         if not max(errs) <= BWD_TOL:
             fail(f"flash attention backward {name}: dq/dk/dv errors {errs} (<= {BWD_TOL})")
-        iters = 50 if T >= 1024 else 200
         dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum), iters)
         dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum), iters)
         plain_dq_ms = time_ms(lambda: fa.dq_reference(q, k, v, do, lse, dsum), max(iters // 5, 10))
@@ -271,12 +404,11 @@ def phase_kernels_bwd():
             ("dkv", 8.0 * B * H * T * T * D, 6 * n + stats, dkv_ms, plain_dkv_ms,
              max(abs_errs[1:])),
         ):
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            # one exp2 per score in each kernel (P recomputed from lse)
+            bound_ms, bound_by, terms = kernel_bound(flops, nbytes, B * H * T * T, exp_rate)
             row[kernel] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                tflops=flops / ms / 1e9,
+                bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms, flops=flops,
             )
         rows[name] = row
         log(
@@ -284,12 +416,45 @@ def phase_kernels_bwd():
             f"dq/dk/dv err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} of max |ref| (<= {BWD_TOL}), "
             f"abs {abs_errs[0]:.3e}/{abs_errs[1]:.3e}/{abs_errs[2]:.3e} | "
             f"dq {dq_ms:.4f} ms (bound {row['dq']['bound_ms']:.4f}, {row['dq']['bound_by']}, "
-            f"{row['dq']['tflops']:.1f} TFLOP/s, plain {plain_dq_ms:.4f}) | "
+            f"plain {plain_dq_ms:.4f}) | "
             f"dkv {dkv_ms:.4f} ms (bound {row['dkv']['bound_ms']:.4f}, {row['dkv']['bound_by']}, "
-            f"{row['dkv']['tflops']:.1f} TFLOP/s, plain {plain_dkv_ms:.4f}) | "
-            f"sdpa backward {sdpa_ms:.4f} ms"
+            f"plain {plain_dkv_ms:.4f}) | sdpa backward {sdpa_ms:.4f} ms"
         )
     return rows
+
+
+def phase_device_times(rows: dict, bwd_rows: dict):
+    """Every kernel's device time per launch (torch.profiler) at every
+    main-path and train-step shape, on the inputs of phase 3.  It runs
+    after the timed phases: a profiled run can leave every later
+    launch in the process costing more host time, and the B=8 sampling
+    phases and the train step are host-bound."""
+    from one2345_tpu_torch.ops import flash_attention as fa
+
+    for i, (name, B, T, H, D) in enumerate(ATTENTION_SHAPES):
+        q, k, v, iters = forward_inputs(i)
+        ms, recorded = device_ms_per_launch(
+            lambda: fa.flash_attention(q, k, v), "flash_fwd_kernel", iters
+        )
+        row = rows[name]
+        log(
+            f"phase device times: flash_attention {name} B={B} T=S={T} H={H} D={D}: "
+            f"device {ms:.4f} ms/launch ({recorded} of {iters} launches recorded), "
+            f"{row['flops'] / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.2f} of the bound"
+        )
+    for i, (name, T, D) in enumerate(TRAIN_SHAPES):
+        q, k, v, do, _, lse, dsum, iters = backward_inputs(i)
+        for kernel, fn in (("dq", fa.flash_attention_bwd_dq), ("dkv", fa.flash_attention_bwd_dkv)):
+            ms, recorded = device_ms_per_launch(
+                lambda: fn(q, k, v, do, lse, dsum), f"flash_bwd_{kernel}_kernel", iters
+            )
+            row = bwd_rows[name][kernel]
+            log(
+                f"phase device times: flash_attention backward {kernel} {name} B={TRAIN_BATCH} "
+                f"T=S={T} H=8 D={D}: device {ms:.4f} ms/launch ({recorded} of {iters} launches "
+                f"recorded), {row['flops'] / ms / 1e9:.1f} TFLOP/s, "
+                f"{row['bound_ms'] / ms:.2f} of the bound"
+            )
 
 
 def phase_unet():
@@ -611,15 +776,22 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
 
-    smi = phase_device()
+    smi, exp_rate = phase_device()
     phase_build()
-    rows = phase_kernels()
-    bwd_rows = phase_kernels_bwd()
+    rows = phase_kernels(exp_rate)
+    bwd_rows = phase_kernels_bwd(exp_rate)
     unet_weights = phase_unet()
     phase_grad()
     stage, params = build_stage(unet_weights)
     launches = phase_sampling(stage, smi)
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
+    phase_device_times(rows, bwd_rows)
+
+    def json_bound_by(by: str) -> str:
+        # the line names two kinds of bound: the exp unit's rate is a peak
+        # rate of operations of one type; `bound_terms` gives all three
+        # terms in ms, so an exp bound shows as the largest of them
+        return "bytes" if by == "bytes" else "operations"
 
     head = rows[HEADLINE_SHAPE]
     kernels = [{
@@ -632,7 +804,8 @@ def main() -> int:
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
+        "bound_by": json_bound_by(head["bound_by"]),
+        "bound_terms": head["bound_terms"],
         "library_ms": head["library_ms"],
     }]
     for kernel, line, n in (("dq", 71, dq_launches), ("dkv", 99, dkv_launches)):
@@ -647,7 +820,8 @@ def main() -> int:
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
+            "bound_by": json_bound_by(row["bound_by"]),
+            "bound_terms": row["bound_terms"],
             "library_ms": row["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))

@@ -28,14 +28,6 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def device_time(evt) -> float:
-    """Device time of a kernel (device-side) profiler row in microseconds."""
-    for attr in ("device_time_total", "cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 # kernel families by a substring of the kernel's name, first match wins
 FAMILIES = (
     ("flash_attention", ("flash_fwd_kernel",)),
@@ -68,6 +60,7 @@ def main() -> int:
         print("torch_profile_unet: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from chip_smoke import device_time_us as device_time
     from chip_smoke import seeded_state_dict
     from one2345_tpu_torch.core.config import DiffusionConfig
     from one2345_tpu_torch.core.profiling import unet_flops_per_eval

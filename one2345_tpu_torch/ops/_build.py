@@ -6,10 +6,12 @@ compiled on its own into ``one2345_tpu_torch/_build/lib<name>-<hash>.so``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited kernel is never
-served from a stale build.  ``build_all`` starts one nvcc per source, all at
-once, and waits for them.  The compiler's ``-Xptxas -v`` report (registers,
-shared memory, spills) is kept beside the library as ``<lib>.log``.
+The library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``, included by the sources), so an edited kernel or header is
+never served from a stale build.  ``build_all`` starts one nvcc per source,
+all at once, and waits for them.  The compiler's ``-Xptxas -v`` report
+(registers, shared memory, spills) is kept beside the library as
+``<lib>.log``.
 """
 
 from __future__ import annotations
@@ -44,8 +46,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the build of ``csrc/<name>.cu`` goes: named by a hash of the
+    source and of every shared header ``csrc/*.cuh``."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, Path]:

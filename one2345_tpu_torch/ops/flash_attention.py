@@ -27,6 +27,7 @@ Launches are counted on the ``flash_attention`` function: ``launch_count``
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -124,21 +125,35 @@ def kernel_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return next(w for w in _PADDED_WIDTHS if w >= D)
 
 
+def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Width of the forward kernel's copies from device to shared memory: 16
+    bytes when D is a multiple of 8 and every row of q, k and v starts on a
+    16-byte boundary (strides multiples of 8 elements, 16-byte aligned
+    pointers), as the UNet's views do; else 4 bytes (bf16 pairs)."""
+    if q.shape[-1] % 8 == 0 and all(
+        x.data_ptr() % 16 == 0 and not any(s % 8 for s in x.stride()[:3]) for x in (q, k, v)
+    ):
+        return 16
+    return 4
+
+
 def _check_pointers(*tensors):
     for x in tensors:
         if x.device != tensors[0].device or x.data_ptr() % 4:
             raise ValueError("flash_attention: tensors must share a device and be 4-byte aligned")
 
 
-def _bind(name: str, symbol: str, n_pointers: int):
-    """The C entry point ``symbol`` of kernel library ``name``: pointers, then
-    B, H, T, S, D, the padded width, the strides, the scale and the stream."""
+@functools.cache
+def _bind(name: str, symbol: str, n_pointers: int, n_ints: int = 6):
+    """The C entry point ``symbol`` of kernel library ``name``, bound once:
+    pointers, then ``n_ints`` ints (B, H, T, S, D, the padded width, ...),
+    the strides, the scale and the stream."""
     from one2345_tpu_torch.ops import _build
 
     fn = getattr(_build.load(name), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     )
     return fn
@@ -158,7 +173,7 @@ def _check(err: int, symbol: str):
 def _launch_fwd(q, k, v):
     dp = kernel_width(q, k, v)
     _check_pointers(q, k, v)
-    fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5)
+    fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5, n_ints=7)
     B, T, H, D = q.shape
     S = k.shape[1]
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
@@ -167,7 +182,8 @@ def _launch_fwd(q, k, v):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, H, T, S, D, dp, _strides(q, k, v, o), 1.0 / math.sqrt(D), stream,
+            B, H, T, S, D, dp, copy_bytes(q, k, v), _strides(q, k, v, o), 1.0 / math.sqrt(D),
+            stream,
         )
     _check(err, "flash_attention_fwd")
     flash_attention.launch_count += 1

@@ -7,6 +7,8 @@ autograd.  The CUDA kernels themselves are compared with the same plain
 versions on the card (the ``cuda`` tests below, and chip_smoke.py).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,9 @@ import pytest
 import torch
 
 from one2345_tpu.ops import flash_attention as jax_fa
+from one2345_tpu_torch.core.config import DiffusionConfig
+from one2345_tpu_torch.diffusion import unet as unet_mod
+from one2345_tpu_torch.ops import _build
 from one2345_tpu_torch.ops import flash_attention as fa
 from tests.torch_port_helpers import max_err
 
@@ -101,6 +106,93 @@ def test_kernel_width_rejects_what_the_kernel_does_not_take(case):
         fa.kernel_width(q, k, v)
 
 
+def _unet_attention_levels():
+    """(channels, tokens) of every multi-token self-attention of the
+    full-width UNet, from DiffusionConfig(): the levels whose downsampling
+    factor is in attention_resolutions, then the middle block."""
+    cfg = DiffusionConfig()
+    u = cfg.unet
+    levels = []
+    for i, mult in enumerate(u.channel_mult):
+        if 2**i in u.attention_resolutions:
+            levels.append((u.model_channels * mult, (cfg.latent_size // 2**i) ** 2))
+    ds = 2 ** (len(u.channel_mult) - 1)
+    levels.append((u.model_channels * u.channel_mult[-1], (cfg.latent_size // ds) ** 2))
+    return levels
+
+
+@pytest.mark.parametrize("channels,tokens", _unet_attention_levels())
+def test_copy_bytes_is_16_for_the_unet_views(channels, tokens, monkeypatch):
+    """The q, k and v views that the UNet's self-attention hands the kernel
+    (bf16 Linear outputs viewed as [B, T, H, D]) take the 16-byte copies."""
+    heads = DiffusionConfig().unet.num_heads
+    seen = []
+
+    def record(q, k, v):
+        seen.append((fa.kernel_width(q, k, v), fa.copy_bytes(q, k, v), q.shape))
+        return fa.attention_reference(q, k, v)
+
+    monkeypatch.setattr(unet_mod, "flash_attention", record)
+    attn = unet_mod.Attention(channels, channels, heads, channels // heads).to(torch.bfloat16)
+    with torch.inference_mode():
+        attn(torch.zeros(2, tokens, channels, dtype=torch.bfloat16))
+    D = channels // heads
+    assert seen == [(next(w for w in (48, 80, 160) if w >= D), 16, (2, tokens, heads, D))]
+
+
+@pytest.mark.parametrize("case", ["d42", "d2", "stride44", "offset4"])
+def test_copy_bytes_is_4_where_rows_are_not_16_byte_aligned(case):
+    bf = torch.bfloat16
+    if case == "d42":  # D even but not a multiple of 8
+        q = torch.zeros(3, 77, 4, 42, dtype=bf)
+    elif case == "d2":
+        q = torch.zeros(1, 1, 2, 2, dtype=bf)
+    elif case == "stride44":  # D = 40 inside rows of 44 elements
+        q = torch.zeros(2, 16, 4, 44, dtype=bf)[..., :40]
+    else:  # D = 40 starting 4 bytes into each row of 48
+        q = torch.zeros(2, 16, 4, 48, dtype=bf)[..., 2:42]
+    assert fa.kernel_width(q, q, q) in (48, 80, 160)
+    assert fa.copy_bytes(q, q, q) == 4
+
+
+def test_library_path_changes_with_every_shared_header(tmp_path, monkeypatch):
+    """A build is named by its source and every csrc/*.cuh, so an edited
+    shared header is never served from a stale build."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "a.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    (tmp_path / "b.cuh").write_text("// new header\n")
+    third = _build.library_path("k")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edited\n')
+    fourth = _build.library_path("k")
+    assert len({first, second, third, fourth}) == 4
+    assert all(p.parent == _build.BUILD_DIR and p.name.startswith("libk-") for p in (first, fourth))
+
+
+def test_entry_points_are_bound_once(monkeypatch):
+    """_bind looks a C entry point up and sets its types on the first call
+    only; later launches reuse the bound function."""
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return types.SimpleNamespace(sym=types.SimpleNamespace())
+
+    monkeypatch.setattr(_build, "load", load)
+    fa._bind.cache_clear()
+    try:
+        first = fa._bind("lib", "sym", 5, n_ints=7)
+        again = fa._bind("lib", "sym", 5, n_ints=7)
+    finally:
+        fa._bind.cache_clear()
+    assert again is first and loads == ["lib"]
+    assert len(first.argtypes) == 5 + 7 + 3
+
+
 def test_wrapper_refuses_mixed_devices():
     q = torch.zeros(1, 16, 2, 40)
     with pytest.raises(ValueError):
@@ -185,14 +277,22 @@ def _counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "B,T,D", [(8, 1024, 40), (56, 1024, 40), (56, 256, 80), (56, 64, 160), (56, 16, 160)]
+    "B,T,S,H,D,width",
+    [
+        (8, 1024, 1024, 8, 40, 16), (56, 1024, 1024, 8, 40, 16), (56, 256, 256, 8, 80, 16),
+        (56, 64, 64, 8, 160, 16), (56, 16, 16, 8, 160, 16),
+        # ragged T and S (not multiples of the tiles); D not a multiple of 8
+        (2, 1000, 1000, 8, 40, 16), (3, 77, 200, 4, 42, 4),
+    ],
 )
-def test_kernel_matches_plain_version_on_card(B, T, D, cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(B * T + D)
-    q, k, v = (
-        torch.randn(B, T, 8, D, generator=gen, device=cuda_device).to(torch.bfloat16)
-        for _ in range(3)
+def test_kernel_matches_plain_version_on_card(B, T, S, H, D, width, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * T + S + D)
+    q = torch.randn(B, T, H, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (
+        torch.randn(B, S, H, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(2)
     )
+    assert fa.copy_bytes(q, k, v) == width
     before = fa.flash_attention.launch_count
     out, lse = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
