@@ -12,10 +12,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
 3. kernels: the forward kernel against its plain PyTorch version at every
    shape the sampling path gives it and at two ragged shapes (16-byte and
    4-byte copies), then the two backward kernels against the plain
-   backward at every shape the train step gives them (bf16 N(0, 1) inputs
-   from a seeded generator), with the kernels', the plain versions' and
-   one library call's times (CUDA events, after warm-up) and each kernel's
-   bound on this card;
+   backward at every shape the train step gives them and at the same two
+   ragged shapes (bf16 N(0, 1) inputs from a seeded generator), and two
+   launches of each at level 0 bit for bit; with the kernels', the plain
+   versions' and one library call's times (CUDA events, after warm-up) and
+   each kernel's bound on this card;
 4. unet: one full-width Zero123-XL UNet eval (B=2) on the card (bf16, the
    kernels) against the same UNet on the CPU (f32, plain versions), with
    the same seeded weights and inputs;
@@ -31,8 +32,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    each timed, its launches counted, and the first one's gradients, params
    and EMA checked;
 8. device times: each kernel's device time per launch (torch.profiler) at
-   the shapes of phase 3, after the timed phases 6 and 7, which a profiled
-   run can slow on the host.
+   the shapes of phase 3, and the device time of SDPA's backward (the
+   library yardstick of the backward kernels, with its kernels' names),
+   after the timed phases 6 and 7, which a profiled run can slow on the
+   host.
 
 Then the kernels' JSON line, the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout.
@@ -154,6 +157,36 @@ def device_ms_per_launch(fn, kernel: str, iters: int) -> tuple[float, int]:
             return sum(device_time_us(r) for r in rows) / launches / 1e3, launches
         counts.append(launches)
     fail(f"profiler: {counts} launches of {kernel} recorded in three profiled runs of {iters} calls")
+
+
+def device_ms_per_call(fn, iters: int) -> tuple[float, list[str]]:
+    """(device ms per call, names of the device kernels) of ``fn``: the sum
+    of every kernel's and copy's device time in a torch.profiler run of
+    ``iters`` calls, over the calls.  A run that recorded fewer than 0.9 of
+    the device events of ``iters`` single-call runs is made again, up to
+    three runs in all; fails if none did."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(n):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = len(run(1))
+    counts = []
+    for _ in range(3):
+        events = run(iters)
+        if per_call and len(events) >= 0.9 * per_call * iters:
+            total_us = sum(e.device_time_total for e in events)
+            return total_us / iters / 1e3, sorted({e.name for e in events})
+        counts.append(len(events))
+    fail(f"profiler: {counts} device events in three runs of {iters} calls ({per_call} per call)")
 
 
 def kernel_bound(flops: float, nbytes: float, n_exp: float, exp_rate: float):
@@ -296,21 +329,62 @@ def forward_inputs(i: int):
     return q, k, v, 50 if B * T >= 8192 else 200
 
 
-def backward_inputs(i: int):
-    """Seeded bf16 N(0, 1) q, k, v, dO of TRAIN_SHAPES[i] (B=TRAIN_BATCH, H=8),
-    the forward kernel's o and lse, Dsum, and the launches per timing."""
+def backward_case(B: int, T: int, S: int, H: int, D: int, seed: int):
+    """Seeded bf16 N(0, 1) q, k, v, dO, the forward kernel's o and lse, and Dsum."""
     import torch
 
     from one2345_tpu_torch.ops import flash_attention as fa
 
-    _, T, D = TRAIN_SHAPES[i]
-    gen = torch.Generator(device="cuda").manual_seed(200 + i)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (
-        torch.randn(TRAIN_BATCH, T, 8, D, generator=gen, device="cuda").to(torch.bfloat16)
-        for _ in range(4)
+        torch.randn(B, L, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+        for L in (T, S, S, T)
     )
     o, lse = fa.flash_attention(q, k, v)
-    return q, k, v, do, o, lse, fa.softmax_grad_rowsum(o, do), 50 if T >= 1024 else 200
+    return q, k, v, do, o, lse, fa.softmax_grad_rowsum(o, do)
+
+
+def backward_inputs(i: int):
+    """backward_case of TRAIN_SHAPES[i] (B=TRAIN_BATCH, H=8), and the launches per timing."""
+    _, T, D = TRAIN_SHAPES[i]
+    return (*backward_case(TRAIN_BATCH, T, T, 8, D, seed=200 + i), 50 if T >= 1024 else 200)
+
+
+def check_backward(name: str, q, k, v, do, o, lse, dsum):
+    """The dq and dkv kernels against the plain backward on the same inputs:
+    (errors over max |ref|, max abs errors) of dQ, dK, dV; fails beyond
+    BWD_TOL."""
+    import torch
+
+    from one2345_tpu_torch.ops import flash_attention as fa
+
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum)
+    torch.cuda.synchronize()
+    refs = fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do)
+    abs_errs = [float((got.float() - ref).abs().max()) for got, ref in zip((dq, dk, dv), refs)]
+    errs = [e / float(ref.abs().max()) for e, ref in zip(abs_errs, refs)]
+    if not max(errs) <= BWD_TOL:
+        fail(f"flash attention backward {name}: dq/dk/dv errors {errs} (<= {BWD_TOL})")
+    return errs, abs_errs
+
+
+def check_repeatable(name: str, q, k, v, do, lse, dsum):
+    """Two launches of each backward kernel on the same inputs give
+    bit-identical outputs (no atomics); fails otherwise."""
+    import torch
+
+    from one2345_tpu_torch.ops import flash_attention as fa
+
+    runs = [
+        (fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum),
+         *fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum))
+        for _ in range(2)
+    ]
+    torch.cuda.synchronize()
+    for label, a, b in zip(("dq", "dk", "dv"), *runs):
+        if not torch.equal(a, b):
+            fail(f"flash attention backward {name}: two launches differ in {label}")
 
 
 def phase_kernels(exp_rate: float):
@@ -366,36 +440,26 @@ def phase_kernels(exp_rate: float):
 
 def phase_kernels_bwd(exp_rate: float):
     """The dq and dkv kernels against the plain backward at the train
-    step's shapes, from the forward kernel's o and lse."""
-    import torch
-    import torch.nn.functional as F
-
+    step's shapes and at the ragged shapes, from the forward kernel's o and
+    lse."""
     from one2345_tpu_torch.ops import flash_attention as fa
 
     rows = {}
     B, H = TRAIN_BATCH, 8
     for i, (name, T, D) in enumerate(TRAIN_SHAPES):
         q, k, v, do, o, lse, dsum, iters = backward_inputs(i)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum)
-        torch.cuda.synchronize()
-        refs = fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do)
-        abs_errs = [float((got.float() - ref).abs().max()) for got, ref in zip((dq, dk, dv), refs)]
-        errs = [e / float(ref.abs().max()) for e, ref in zip(abs_errs, refs)]
-        if not max(errs) <= BWD_TOL:
-            fail(f"flash attention backward {name}: dq/dk/dv errors {errs} (<= {BWD_TOL})")
+        errs, abs_errs = check_backward(name, q, k, v, do, o, lse, dsum)
+        repeat = ""
+        if name == TRAIN_HEADLINE:
+            check_repeatable(name, q, k, v, do, lse, dsum)
+            repeat = " | two launches bit-identical"
         dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum), iters)
         dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum), iters)
         plain_dq_ms = time_ms(lambda: fa.dq_reference(q, k, v, do, lse, dsum), max(iters // 5, 10))
         plain_dkv_ms = time_ms(lambda: fa.dkv_reference(q, k, v, do, lse, dsum), max(iters // 5, 10))
         # yardstick: the backward alone of PyTorch's fused attention (dQ, dK
         # and dV in one call), same inputs and dtype
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves))
-        grad_out = do.transpose(1, 2)
-        sdpa_ms = time_ms(
-            lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True), iters
-        )
+        sdpa_ms = time_ms(sdpa_backward(q, k, v, do), iters)
         n = q.numel() * q.element_size()  # one [B, T, H, D] bf16 tensor
         stats = 2 * B * H * T * 4  # lse and dsum, f32 [B, H, T]
         row = {}
@@ -412,15 +476,41 @@ def phase_kernels_bwd(exp_rate: float):
             )
         rows[name] = row
         log(
-            f"phase kernels: flash_attention backward {name} B={B} T=S={T} H={H} D={D}: "
+            f"phase kernels: flash_attention backward {name} B={B} T=S={T} H={H} D={D} "
+            f"({fa.copy_bytes(q, k, v, do)}-byte copies): "
             f"dq/dk/dv err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} of max |ref| (<= {BWD_TOL}), "
             f"abs {abs_errs[0]:.3e}/{abs_errs[1]:.3e}/{abs_errs[2]:.3e} | "
             f"dq {dq_ms:.4f} ms (bound {row['dq']['bound_ms']:.4f}, {row['dq']['bound_by']}, "
             f"plain {plain_dq_ms:.4f}) | "
             f"dkv {dkv_ms:.4f} ms (bound {row['dkv']['bound_ms']:.4f}, {row['dkv']['bound_by']}, "
-            f"plain {plain_dkv_ms:.4f}) | sdpa backward {sdpa_ms:.4f} ms"
+            f"plain {plain_dkv_ms:.4f}) | sdpa backward {sdpa_ms:.4f} ms{repeat}"
+        )
+    for i, (name, B, T, S, H, D, width) in enumerate(RAGGED_SHAPES):
+        q, k, v, do, o, lse, dsum = backward_case(B, T, S, H, D, seed=250 + i)
+        if fa.copy_bytes(q, k, v, do) != width:
+            fail(f"flash attention backward {name}: {fa.copy_bytes(q, k, v, do)}-byte copies, "
+                 f"expected {width}")
+        errs, abs_errs = check_backward(name, q, k, v, do, o, lse, dsum)
+        rows[name] = {"dq": dict(max_abs_err=abs_errs[0]), "dkv": dict(max_abs_err=max(abs_errs[1:]))}
+        log(
+            f"phase kernels: flash_attention backward {name} B={B} T={T} S={S} H={H} D={D} "
+            f"({width}-byte copies): dq/dk/dv err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} of "
+            f"max |ref| (<= {BWD_TOL})"
         )
     return rows
+
+
+def sdpa_backward(q, k, v, do):
+    """One call of the backward alone of PyTorch's fused attention on these
+    [B, T, H, D] inputs (dQ, dK and dV in one torch.autograd.grad): the
+    backward kernels' library yardstick, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves))
+    grad_out = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
 
 
 def phase_device_times(rows: dict, bwd_rows: dict):
@@ -437,6 +527,7 @@ def phase_device_times(rows: dict, bwd_rows: dict):
             lambda: fa.flash_attention(q, k, v), "flash_fwd_kernel", iters
         )
         row = rows[name]
+        row["device_ms"] = ms
         log(
             f"phase device times: flash_attention {name} B={B} T=S={T} H={H} D={D}: "
             f"device {ms:.4f} ms/launch ({recorded} of {iters} launches recorded), "
@@ -449,12 +540,22 @@ def phase_device_times(rows: dict, bwd_rows: dict):
                 lambda: fn(q, k, v, do, lse, dsum), f"flash_bwd_{kernel}_kernel", iters
             )
             row = bwd_rows[name][kernel]
+            row["device_ms"] = ms
             log(
                 f"phase device times: flash_attention backward {kernel} {name} B={TRAIN_BATCH} "
                 f"T=S={T} H=8 D={D}: device {ms:.4f} ms/launch ({recorded} of {iters} launches "
                 f"recorded), {row['flops'] / ms / 1e9:.1f} TFLOP/s, "
                 f"{row['bound_ms'] / ms:.2f} of the bound"
             )
+        sdpa_ms, names = device_ms_per_call(sdpa_backward(q, k, v, do), iters)
+        for kernel in ("dq", "dkv"):
+            bwd_rows[name][kernel]["library_device_ms"] = sdpa_ms
+        log(
+            f"phase device times: sdpa backward {name} B={TRAIN_BATCH} T=S={T} H=8 D={D}: "
+            f"device {sdpa_ms:.4f} ms/call (event {bwd_rows[name]['dq']['library_ms']:.4f} ms) | "
+            f"dq + dkv device {bwd_rows[name]['dq']['device_ms'] + bwd_rows[name]['dkv']['device_ms']:.4f} ms"
+            f" | kernels: {'; '.join(names)}"
+        )
 
 
 def phase_unet():
@@ -802,6 +903,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": head["ms"],
+        "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": json_bound_by(head["bound_by"]),
@@ -818,11 +920,13 @@ def main() -> int:
             "launches": n,
             "max_abs_err": max(r[kernel]["max_abs_err"] for r in bwd_rows.values()),
             "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": json_bound_by(row["bound_by"]),
             "bound_terms": row["bound_terms"],
             "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

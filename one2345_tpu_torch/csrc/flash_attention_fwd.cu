@@ -35,7 +35,9 @@
 //   dynamic shared memory.  Copies move 16 bytes (cp.async.cg) when D is
 //   a multiple of 8 and every row starts 16-byte aligned (all main-path
 //   calls), else 4 bytes (cp.async.ca); the wrapper picks.  Rows >= T or
-//   S and the pad columns D..DP are zero-filled by the copy itself;
+//   S and the pad columns D..DP are zero-filled by the copy itself.  The
+//   ring and its copies live in flash_common.cuh, shared with the
+//   backward kernels;
 // - V stays row-major in shared memory; the P.V B fragments come from
 //   ldmatrix.x4.trans, the Q and K fragments from ldmatrix.x4, one
 //   instruction per two mma.sync m16n8k16 (bf16 in, f32 accumulate) per
@@ -75,7 +77,7 @@
 
 namespace {
 
-using flash::cp_async;
+using flash::copy_tile;
 using flash::cp_async_commit;
 using flash::cp_async_wait;
 using flash::ex2;
@@ -121,46 +123,6 @@ template <int DP>
 __host__ __device__ constexpr int smem_bytes() {
   return (block_rows<DP>() + 2 * Config<DP>::kStages * kBlockKV) * (DP + 8) *
          static_cast<int>(sizeof(bf16));
-}
-
-// Issue the copies of rows [row0, row0 + ROWS) x columns [0, DP) of a
-// [rows, D] matrix with row stride `ld` into a shared tile of pitch DP + 8,
-// VEC bytes per copy, zero-filling rows >= n_rows and columns >= D.  Each
-// thread keeps one column chunk (threads past the row's last chunk idle:
-// the chunks per row are rounded up to a power of two) and walks the rows
-// with one pointer, so a copy costs no division and few registers.
-template <int DP, int ROWS, int THREADS, int VEC>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, long long ld,
-                                          int row0, int n_rows, int D) {
-  constexpr int kElems = VEC / 2;  // bf16 per copy
-  constexpr int kPerRow = DP / kElems;
-  constexpr int kLanes = kPerRow <= 8 ? 8 : kPerRow <= 16 ? 16 : kPerRow <= 32 ? 32
-                         : kPerRow <= 64 ? 64 : 128;
-  static_assert(kPerRow <= kLanes && THREADS % kLanes == 0, "a row's chunks fit the block");
-  constexpr int kStep = THREADS / kLanes;  // rows between a thread's copies
-  static_assert(ROWS % kStep == 0, "the rows split evenly over the threads");
-  const int chunk = threadIdx.x % kLanes;
-  if (chunk >= kPerRow) return;
-  const int c = chunk * kElems;
-  int r = threadIdx.x / kLanes;
-  const bf16* p = src + (long long)(row0 + r) * ld + c;
-  bf16* d = dst + r * (DP + 8) + c;
-  auto copy_next = [&]() {
-    const bool in = row0 + r < n_rows && c < D;
-    cp_async<VEC>(d, in ? p : src, in);
-    r += kStep;
-    p += kStep * ld;
-    d += kStep * (DP + 8);
-  };
-  // 16-byte copies are a few per thread: unrolled.  4-byte ones are up to
-  // 64 per thread, and unrolled they would hold a register per copy
-  if constexpr (VEC == 16) {
-#pragma unroll
-    for (int i = 0; i < ROWS / kStep; ++i) copy_next();
-  } else {
-#pragma unroll 2
-    for (int i = 0; i < ROWS / kStep; ++i) copy_next();
-  }
 }
 
 // One 64-key tile for a warp's MT row tiles: S = Q K^T, the online-softmax
@@ -286,7 +248,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KT = DP / 16;
   constexpr int ND = DP / 8;
   constexpr int kTile = kBlockKV * P;  // elements of one K or V tile
-  static_assert(STAGES >= 2, "the ring needs two stages");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* kvs = qs + BQ * P;  // stage i: K at kvs + 2 i kTile, V after it
@@ -304,21 +265,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * sv[6] + h * sv[8];
   const int n_tiles = (S + kBlockKV - 1) / kBlockKV;
 
-  // one copy group per tile; past the last tile the group is empty, so the
-  // count of pending groups stays uniform
-  auto load_kv = [&](int t) {
-    if (t < n_tiles) {
-      bf16* dst = kvs + (t % STAGES) * 2 * kTile;
-      copy_tile<DP, kBlockKV, kThreads, VEC>(dst, kb, sv[4], t * kBlockKV, S, D);
-      copy_tile<DP, kBlockKV, kThreads, VEC>(dst + kTile, vb, sv[7], t * kBlockKV, S, D);
-    }
-    cp_async_commit();
+  // the K/V ring: one copy group per 64-key tile
+  auto issue = [&](int t, int slot) {
+    bf16* dst = kvs + slot * 2 * kTile;
+    copy_tile<DP, kBlockKV, kThreads, VEC>(dst, kb, sv[4], t * kBlockKV, S, D);
+    copy_tile<DP, kBlockKV, kThreads, VEC>(dst + kTile, vb, sv[7], t * kBlockKV, S, D);
   };
 
   copy_tile<DP, BQ, kThreads, VEC>(qs, q + b * sv[0] + h * sv[2], sv[1], q0, T, D);
   cp_async_commit();
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) load_kv(t);
+  flash::ring_fill<STAGES>(n_tiles, issue);
   cp_async_wait<STAGES - 1>();  // the Q group
   __syncthreads();
 
@@ -346,17 +302,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const bool ragged = S % kBlockKV != 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<STAGES - 2>();  // tile t has landed (this thread's copies)
-    __syncthreads();              // ... everyone's, and tile t-1 is fully read
-    load_kv(t + STAGES - 1);      // into the stage tile t-1 used
-    const bf16* ks = kvs + (t % STAGES) * 2 * kTile;
+  auto body = [&](int t, int slot) {
+    const bf16* ks = kvs + slot * 2 * kTile;
     if (ragged && t == n_tiles - 1) {
       attend_tile<DP, MT, true>(ks, ks + kTile, qa, acc, m, l, t * kBlockKV, S, c);
     } else {
       attend_tile<DP, MT, false>(ks, ks + kTile, qa, acc, m, l, t * kBlockKV, S, c);
     }
-  }
+  };
+  flash::ring_run<STAGES>(n_tiles, issue, body);
 
   bf16* ob = o + b * sv[9] + h * sv[11];
 #pragma unroll
@@ -390,25 +344,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
 template <int DP, int VEC>
 int launch(int B, int H, int T, int S, int D, const void* q, const void* k, const void* v,
            void* o, void* lse, const Strides& st, float scale, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DP>();
-  // The dynamic shared-memory limit is an attribute of each instance on
-  // each device: set it on the instance's first launch on a device only.
-  static std::atomic<bool> smem_set[kMaxDevices];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!smem_set[device].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<DP, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[device].store(true, std::memory_order_release);
-  }
+  static std::atomic<bool> smem_set[flash::kMaxDevices];
+  const int err = flash::set_smem_once(flash_fwd_kernel<DP, VEC>, smem, smem_set);
+  if (err != 0) return err;
   const dim3 grid((T + block_rows<DP>() - 1) / block_rows<DP>(), B * H);
   flash_fwd_kernel<DP, VEC><<<grid, Config<DP>::kWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),

@@ -1,6 +1,8 @@
-// Device helpers of the flash-attention kernels for Hopper (sm_90a): the
+// Helpers of the flash-attention kernels for Hopper (sm_90a): the
 // tensor-core product, bf16 packing, ldmatrix fragment loads, cp.async
-// copies from device to shared memory, and the hardware exp2.
+// copies from device to shared memory and the ring of tiles they fill, the
+// hardware exp2; on the host, the dynamic shared-memory limit set once per
+// kernel instance and device.
 //
 // Fragment layouts are those of mma.sync m16n8k16 (PTX ISA, "Matrix
 // fragments for mma.m16n8k16"): a lane holds rows g = lane / 4 and g + 8,
@@ -9,7 +11,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace flash {
 
@@ -76,12 +81,105 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// Issue the copies of rows [row0, row0 + ROWS) x columns [0, DP) of a
+// [rows, D] bf16 matrix with row stride `ld` into a shared tile of pitch
+// DP + 8, VEC bytes per copy, zero-filling rows >= n_rows and columns >= D.
+// Each thread keeps one column chunk (threads past the row's last chunk
+// idle: the chunks per row are rounded up to a power of two) and walks the
+// rows with one pointer, so a copy costs no division and few registers.
+template <int DP, int ROWS, int THREADS, int VEC>
+__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long ld, int row0, int n_rows, int D) {
+  constexpr int kElems = VEC / 2;  // bf16 per copy
+  constexpr int kPerRow = DP / kElems;
+  constexpr int kLanes = kPerRow <= 8 ? 8 : kPerRow <= 16 ? 16 : kPerRow <= 32 ? 32
+                         : kPerRow <= 64 ? 64 : 128;
+  static_assert(kPerRow <= kLanes && THREADS % kLanes == 0, "a row's chunks fit the block");
+  constexpr int kStep = THREADS / kLanes;  // rows between a thread's copies
+  static_assert(ROWS % kStep == 0, "the rows split evenly over the threads");
+  const int chunk = threadIdx.x % kLanes;
+  if (chunk >= kPerRow) return;
+  const int c = chunk * kElems;
+  int r = threadIdx.x / kLanes;
+  const __nv_bfloat16* p = src + (long long)(row0 + r) * ld + c;
+  __nv_bfloat16* d = dst + r * (DP + 8) + c;
+  auto copy_next = [&]() {
+    const bool in = row0 + r < n_rows && c < D;
+    cp_async<VEC>(d, in ? p : src, in);
+    r += kStep;
+    p += kStep * ld;
+    d += kStep * (DP + 8);
+  };
+  // 16-byte copies are a few per thread: unrolled.  4-byte ones are up to
+  // 64 per thread, and unrolled they would hold a register per copy
+  if constexpr (VEC == 16) {
+#pragma unroll
+    for (int i = 0; i < ROWS / kStep; ++i) copy_next();
+  } else {
+#pragma unroll 2
+    for (int i = 0; i < ROWS / kStep; ++i) copy_next();
+  }
+}
+
+// The ring that streams a kernel's loop operand from device to shared
+// memory: STAGES slots, one cp.async group per tile.  `issue(t, slot)`
+// issues the copies of tile t into ring slot `slot`.  Past the last tile
+// the group is left empty, so the count of pending groups stays uniform.
+template <int STAGES, class Issue>
+__device__ __forceinline__ void ring_issue(int t, int n_tiles, Issue& issue) {
+  if (t < n_tiles) issue(t, t % STAGES);
+  cp_async_commit();
+}
+
+// Before the loop: tiles 0 .. STAGES-2 in flight.  Groups committed before
+// this call (a block's fixed operand) complete after cp_async_wait<STAGES-1>.
+template <int STAGES, class Issue>
+__device__ __forceinline__ void ring_fill(int n_tiles, Issue& issue) {
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) ring_issue<STAGES>(t, n_tiles, issue);
+}
+
+// The loop over tiles: wait for tile t's copies (this thread's, then, by
+// one __syncthreads, everyone's; the same barrier retires tile t-1's
+// reads), issue tile t + STAGES - 1 into the slot tile t-1 used, so that
+// its copies run under tile t's work, and run body(t, slot of tile t).
+template <int STAGES, class Issue, class Body>
+__device__ __forceinline__ void ring_run(int n_tiles, Issue& issue, Body& body) {
+  static_assert(STAGES >= 2, "the ring needs two stages");
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    ring_issue<STAGES>(t + STAGES - 1, n_tiles, issue);
+    body(t, t % STAGES);
+  }
+}
+
 // 2^x on the special-function unit (ex2.approx, subnormal results flushed
 // to zero; 2^-inf = 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared-memory limit is an attribute of each kernel instance
+// on each device: set it on the instance's first launch on the current
+// device only (`done`: one flag per device, static in the caller's
+// instance).  Returns the cudaError_t.
+template <class Kernel>
+inline int set_smem_once(Kernel kernel, int bytes, std::atomic<bool> (&done)[kMaxDevices]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!done[device].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done[device].store(true, std::memory_order_release);
+  }
+  return 0;
 }
 
 }  // namespace flash

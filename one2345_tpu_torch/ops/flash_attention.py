@@ -26,6 +26,7 @@ Launches are counted on the ``flash_attention`` function: ``launch_count``
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -98,13 +99,15 @@ def _strides_ok(x: torch.Tensor) -> bool:
     return x.stride(-1) == 1 and not any(s % 2 for s in x.stride()[:3])
 
 
-def kernel_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Check that the kernels take these tensors; return their padded width.
+def kernel_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do=None) -> int:
+    """Check that the kernels take these tensors (and the output gradient
+    ``do`` of the backward, shaped as q); return their padded width.
 
     Raises ValueError on anything the kernels do not take: another dtype
     than bf16, mismatched shapes, D odd or above 160, a non-unit stride
     along D, odd strides or pointers (the kernels move bf16 pairs)."""
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    named = (("q", q), ("k", k), ("v", v)) + ((("dO", do),) if do is not None else ())
+    for name, x in named:
         if x.dtype != torch.bfloat16:
             raise ValueError(f"flash_attention: {name} must be bfloat16, got {x.dtype}")
         if x.dim() != 4:
@@ -116,6 +119,8 @@ def kernel_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
         raise ValueError(
             f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}"
         )
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"flash_attention: dO {tuple(do.shape)} must match q {tuple(q.shape)}")
     if T < 1 or k.shape[1] < 1:
         raise ValueError("flash_attention: empty sequence")
     if D % 2 or D > _PADDED_WIDTHS[-1]:
@@ -125,13 +130,15 @@ def kernel_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return next(w for w in _PADDED_WIDTHS if w >= D)
 
 
-def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Width of the forward kernel's copies from device to shared memory: 16
-    bytes when D is a multiple of 8 and every row of q, k and v starts on a
-    16-byte boundary (strides multiples of 8 elements, 16-byte aligned
-    pointers), as the UNet's views do; else 4 bytes (bf16 pairs)."""
+def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do=None) -> int:
+    """Width of the kernels' copies from device to shared memory: 16 bytes
+    when D is a multiple of 8 and every row of q, k, v (and, for the
+    backward, dO) starts on a 16-byte boundary (strides multiples of 8
+    elements, 16-byte aligned pointers), as the UNet's views do; else 4
+    bytes (bf16 pairs)."""
+    tensors = (q, k, v) if do is None else (q, k, v, do)
     if q.shape[-1] % 8 == 0 and all(
-        x.data_ptr() % 16 == 0 and not any(s % 8 for s in x.stride()[:3]) for x in (q, k, v)
+        x.data_ptr() % 16 == 0 and not any(s % 8 for s in x.stride()[:3]) for x in tensors
     ):
         return 16
     return 4
@@ -144,16 +151,16 @@ def _check_pointers(*tensors):
 
 
 @functools.cache
-def _bind(name: str, symbol: str, n_pointers: int, n_ints: int = 6):
+def _bind(name: str, symbol: str, n_pointers: int):
     """The C entry point ``symbol`` of kernel library ``name``, bound once:
-    pointers, then ``n_ints`` ints (B, H, T, S, D, the padded width, ...),
-    the strides, the scale and the stream."""
+    ``n_pointers`` pointers, then seven ints (B, H, T, S, D, the padded
+    width, the copy width), the strides, the scale and the stream."""
     from one2345_tpu_torch.ops import _build
 
     fn = getattr(_build.load(name), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     )
     return fn
@@ -165,6 +172,13 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(values))(*values)
 
 
+@contextlib.contextmanager
+def _on_device(device: torch.device):
+    """With ``device`` current: its current CUDA stream, as an int."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
 def _check(err: int, symbol: str):
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed with cudaError_t {err}")
@@ -173,13 +187,12 @@ def _check(err: int, symbol: str):
 def _launch_fwd(q, k, v):
     dp = kernel_width(q, k, v)
     _check_pointers(q, k, v)
-    fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5, n_ints=7)
+    fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5)
     B, T, H, D = q.shape
     S = k.shape[1]
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _on_device(q.device) as stream:
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             B, H, T, S, D, dp, copy_bytes(q, k, v), _strides(q, k, v, o), 1.0 / math.sqrt(D),
@@ -191,22 +204,18 @@ def _launch_fwd(q, k, v):
 
 
 def _launch_bwd(symbol, q, k, v, do, lse, dsum, outputs):
-    dp = kernel_width(q, k, v)
-    kernel_width(do, k, v)
+    dp = kernel_width(q, k, v, do)
     B, T, H, D = q.shape
-    if do.shape != q.shape:
-        raise ValueError(f"flash_attention: dO {tuple(do.shape)} must match q {tuple(q.shape)}")
     for name, x in (("lse", lse), ("dsum", dsum)):
         if x.dtype != torch.float32 or x.shape != (B, H, T) or not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous f32 [B, H, T]")
     _check_pointers(q, k, v, do, lse, dsum, *outputs)
     fn = _bind("flash_attention_bwd", symbol, 6 + len(outputs))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _on_device(q.device) as stream:
         err = fn(
             *(x.data_ptr() for x in (q, k, v, do, lse, dsum, *outputs)),
-            B, H, T, k.shape[1], D, dp, _strides(q, k, v, do, *outputs), 1.0 / math.sqrt(D),
-            stream,
+            B, H, T, k.shape[1], D, dp, copy_bytes(q, k, v, do),
+            _strides(q, k, v, do, *outputs), 1.0 / math.sqrt(D), stream,
         )
     _check(err, symbol)
 

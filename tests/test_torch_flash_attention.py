@@ -7,6 +7,7 @@ autograd.  The CUDA kernels themselves are compared with the same plain
 versions on the card (the ``cuda`` tests below, and chip_smoke.py).
 """
 
+import contextlib
 import types
 
 import jax
@@ -87,11 +88,12 @@ def test_kernel_width_pads_to_the_next_instance(D, width):
 
 @pytest.mark.parametrize(
     "case",
-    ["float32", "odd_d", "wide_d", "shape_mismatch", "strided_d"],
+    ["float32", "odd_d", "wide_d", "shape_mismatch", "strided_d", "do_shape", "do_float32"],
 )
 def test_kernel_width_rejects_what_the_kernel_does_not_take(case):
     bf = torch.bfloat16
     q = k = v = torch.zeros(2, 16, 8, 40, dtype=bf)
+    do = None
     if case == "float32":
         q = q.float()
     elif case == "odd_d":
@@ -102,8 +104,12 @@ def test_kernel_width_rejects_what_the_kernel_does_not_take(case):
         k = torch.zeros(2, 16, 4, 40, dtype=bf)
     elif case == "strided_d":
         q = torch.zeros(2, 16, 8, 80, dtype=bf)[..., ::2]
+    elif case == "do_shape":  # the backward's output gradient must be shaped as q
+        do = torch.zeros(2, 16, 8, 48, dtype=bf)
+    elif case == "do_float32":
+        do = torch.zeros(2, 16, 8, 40)
     with pytest.raises(ValueError):
-        fa.kernel_width(q, k, v)
+        fa.kernel_width(q, k, v, do)
 
 
 def _unet_attention_levels():
@@ -155,6 +161,82 @@ def test_copy_bytes_is_4_where_rows_are_not_16_byte_aligned(case):
     assert fa.copy_bytes(q, q, q) == 4
 
 
+@pytest.mark.parametrize("channels,tokens", _unet_attention_levels())
+def test_copy_bytes_is_16_for_the_train_step_views(channels, tokens, monkeypatch):
+    """Under training, the backward gets the UNet's q, k and v views and the
+    output gradient autograd hands over; the dq and dkv kernels take all
+    four with 16-byte copies."""
+    heads = DiffusionConfig().unet.num_heads
+    seen = []
+    dq_plain = fa.flash_attention_bwd_dq
+
+    def record(q, k, v, do, lse, dsum):
+        seen.append((fa.kernel_width(q, k, v, do), fa.copy_bytes(q, k, v, do), do.shape))
+        return dq_plain(q, k, v, do, lse, dsum)
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", record)
+    attn = unet_mod.Attention(channels, channels, heads, channels // heads).to(torch.bfloat16)
+    x = torch.zeros(2, tokens, channels, dtype=torch.bfloat16, requires_grad=True)
+    attn(x).float().square().sum().backward()
+    D = channels // heads
+    assert seen == [(next(w for w in (48, 80, 160) if w >= D), 16, (2, tokens, heads, D))]
+
+
+@pytest.mark.parametrize("case", ["contiguous_do", "unaligned_do"])
+def test_copy_bytes_takes_the_output_gradient(case):
+    """16 bytes for aligned q, k, v and a contiguous dO; 4 when only dO's
+    rows are not 16-byte aligned (D = 40 starting 4 bytes into rows of 48)."""
+    bf = torch.bfloat16
+    q = torch.zeros(2, 64, 8, 40, dtype=bf)
+    if case == "contiguous_do":
+        do = torch.zeros_like(q)
+    else:
+        do = torch.zeros(2, 64, 8, 48, dtype=bf)[..., 2:42]
+    assert fa.copy_bytes(q, q, q) == 16
+    assert fa.kernel_width(q, q, q, do) == 48
+    assert fa.copy_bytes(q, q, q, do) == (16 if case == "contiguous_do" else 4)
+
+
+@pytest.mark.parametrize("D,width", [(40, 16), (42, 4)])
+def test_backward_launch_passes_the_copy_width_and_binds_once(D, width, monkeypatch):
+    """_launch_bwd hands each backward entry point B, H, T, S, D, the padded
+    width and the copy width (16 or 4 bytes, from copy_bytes over q, k, v
+    and dO), and binds each entry point once (monkeypatched library and
+    stream: no card needed)."""
+    calls, loads = [], []
+
+    def entry(name):
+        def fn(*args):
+            calls.append((name, args))
+            return 0
+        return fn
+
+    def load(name):
+        loads.append(name)
+        return types.SimpleNamespace(**{s: entry(s) for s in ("dq_sym", "dkv_sym")})
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(fa, "_on_device", lambda device: contextlib.nullcontext(0))
+    bf = torch.bfloat16
+    q, do = torch.zeros(3, 77, 4, D, dtype=bf), torch.zeros(3, 77, 4, D, dtype=bf)
+    k, v = torch.zeros(3, 200, 4, D, dtype=bf), torch.zeros(3, 200, 4, D, dtype=bf)
+    lse, dsum = torch.zeros(3, 4, 77), torch.zeros(3, 4, 77)
+    fa._bind.cache_clear()
+    try:
+        for _ in range(2):
+            fa._launch_bwd("dq_sym", q, k, v, do, lse, dsum, (torch.empty_like(q),))
+            fa._launch_bwd("dkv_sym", q, k, v, do, lse, dsum, (torch.empty_like(k), torch.empty_like(v)))
+        bound = [fa._bind("flash_attention_bwd", s, n) for s, n in (("dq_sym", 7), ("dkv_sym", 8))]
+    finally:
+        fa._bind.cache_clear()
+    assert loads == ["flash_attention_bwd"] * 2  # once per entry point
+    assert [len(fn.argtypes) for fn in bound] == [7 + 7 + 3, 8 + 7 + 3]
+    assert [name for name, _ in calls] == ["dq_sym", "dkv_sym"] * 2
+    for name, args in calls:
+        n_pointers = 7 if name == "dq_sym" else 8
+        assert args[n_pointers:n_pointers + 7] == (3, 4, 77, 200, D, 48, width)
+
+
 def test_library_path_changes_with_every_shared_header(tmp_path, monkeypatch):
     """A build is named by its source and every csrc/*.cuh, so an edited
     shared header is never served from a stale build."""
@@ -185,8 +267,8 @@ def test_entry_points_are_bound_once(monkeypatch):
     monkeypatch.setattr(_build, "load", load)
     fa._bind.cache_clear()
     try:
-        first = fa._bind("lib", "sym", 5, n_ints=7)
-        again = fa._bind("lib", "sym", 5, n_ints=7)
+        first = fa._bind("lib", "sym", 5)
+        again = fa._bind("lib", "sym", 5)
     finally:
         fa._bind.cache_clear()
     assert again is first and loads == ["lib"]
@@ -224,13 +306,17 @@ def test_backward_reference_matches_autograd(T, S, D):
         assert max_err(got, ref) < 1e-5 * max(1.0, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("T,S,D", [(256, 256, 40), (320, 256, 64)])
+@pytest.mark.parametrize(
+    "T,S,D", [(256, 256, 40), (320, 256, 64), (200, 256, 40), (256, 256, 42), (77, 200, 42)]
+)
 def test_backward_matches_pallas_grad(T, S, D, interpret_pallas):
     """The port's gradient (the autograd Function on the CPU: plain forward
     and backward) against jax.grad through the JAX flash attention, whose
     custom_vjp runs the Pallas backward kernels in interpret mode: the
     shapes and bound of tests/test_flash_attention.py (Pallas dots run at
-    MXU precision, bf16 inputs, even in interpret mode)."""
+    MXU precision, bf16 inputs, even in interpret mode), a ragged T != S
+    (queries padded to the block), D = 42, and T = 77, S = 200, where the
+    JAX function takes XLA's attention (S not a multiple of its block)."""
     rng = np.random.default_rng(2)
     q, k, v = (rng.normal(size=(1, L, 2, D)).astype(np.float32) for L in (T, S, S))
     w = rng.normal(size=(1, T, 2, D)).astype(np.float32)
@@ -304,25 +390,41 @@ def test_kernel_matches_plain_version_on_card(B, T, S, H, D, width, cuda_device)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,D", [(1024, 40), (256, 80), (64, 160), (16, 160)])
-def test_backward_kernels_match_plain_version_on_card(T, D, cuda_device):
-    """K2 (dq and dkv kernels) at the train step's shapes (B=8, 8 heads)
-    against the plain backward in f32 from the same bf16 inputs and the
-    forward kernel's o and lse; errors relative to max |ref| (bf16 P and dS
-    in the products, bf16 outputs: 6.2e-3 at most on an H100)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(T + D)
-    q, k, v, do = (
-        torch.randn(8, T, 8, D, generator=gen, device=cuda_device).to(torch.bfloat16)
-        for _ in range(4)
+@pytest.mark.parametrize(
+    "B,T,S,H,D,width",
+    [
+        (8, 1024, 1024, 8, 40, 16), (8, 256, 256, 8, 80, 16), (8, 64, 64, 8, 160, 16),
+        (8, 16, 16, 8, 160, 16),
+        # ragged T and S (not multiples of the tiles); D not a multiple of 8
+        (2, 1000, 1000, 8, 40, 16), (3, 77, 200, 4, 42, 4),
+    ],
+)
+def test_backward_kernels_match_plain_version_on_card(B, T, S, H, D, width, cuda_device):
+    """K2 (dq and dkv kernels) at the train step's shapes (B=8, 8 heads) and
+    at two ragged shapes against the plain backward in f32 from the same
+    bf16 inputs and the forward kernel's o and lse; errors relative to max
+    |ref| (bf16 P and dS in the products, bf16 outputs: 6.2e-3 at most on
+    an H100).  A second launch gives bit-identical outputs (no atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * T + S + D)
+    q, do = (
+        torch.randn(B, T, H, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(2)
     )
+    k, v = (
+        torch.randn(B, S, H, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(2)
+    )
+    assert fa.copy_bytes(q, k, v, do) == width
     o, lse = fa.flash_attention(q, k, v)
     counts = _counts()
     grads = fa.flash_attention_backward(q, k, v, o, lse, do)
+    again = fa.flash_attention_backward(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     refs = fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do)
-    assert _counts() == (counts[0], counts[1] + 1, counts[2] + 1)
-    for got, ref in zip(grads, refs):
+    assert _counts() == (counts[0], counts[1] + 2, counts[2] + 2)
+    for got, repeat, ref in zip(grads, again, refs):
         assert got.dtype == torch.bfloat16
+        assert torch.equal(got, repeat)
         assert max_err(got.float(), ref) < 1.5e-2 * float(ref.abs().max())
 
 
