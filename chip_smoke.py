@@ -27,15 +27,26 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (stage 1 views 0-3, stage 2 of view 0, stage 1 of the second ring at the
    fallback polar angle of 90 degrees, stage 2 of the other 7 views), with
    seeded non-zero weights.  Run twice; launches are counted on the second;
-7. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
+7. recon: the reconstruction stage (ReconStage, lod0, ReconConfig() at
+   full width, bf16 conv path) on the 32 stage-2 images of the warm
+   sampling run and the rig's cameras at the same fallback polar angle:
+   image stack -> 96^3 cost volume -> f32 256^3 field -> marching tets ->
+   vertex colors, with seeded non-zero conv, BN and blending weights and
+   the geometric SDF init (its latent columns seeded small).  One cold
+   and one warm run, seconds per step; the mesh checked (finite, > 1000
+   faces, indices in range, colors in [0, 1], warm equal to cold); the
+   card's f32 stage against the CPU's (the conditional volume and the
+   field at 64^3), and the bf16 field's signs against the f32 one's;
+8. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
    remat, f32 weights, bf16 autocast): one cold step and five warm ones,
    each timed, its launches counted, and the first one's gradients, params
    and EMA checked;
-8. device times: each kernel's device time per launch (torch.profiler) at
+9. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 and 7, which a profiled run can slow on the
-   host.
+   after the timed phases 6 to 8, which a profiled run can slow on the
+   host; then one warm reconstruct under torch.profiler: device ms by
+   kernel family, the device's busy share, host ms of marching tets.
 
 Then the kernels' JSON line, the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout.
@@ -74,6 +85,13 @@ GRAD_TOL = 3e-2
 POLAR_DEG = 90.0  # the runner's fallback elevation (ElevationConfig.default_elevation)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6  # one cold, five warm
+RECON_RESOLUTION = 256  # ReconConfig().mesh_resolution
+RECON_CHECK_RESOLUTION = 64  # the field lattice of the card-against-CPU check
+VOLUME_TOL = 1e-3  # relative L2, f32 conditional volume, card against CPU
+FIELD_TOL = 1e-3  # max abs, f32 field at 64^3, card against CPU
+SIGN_AGREEMENT = 0.999  # bf16 field against the f32 one where |u| > 1e-2
+RECON_SPANS = ("feature_maps", "conditional_volume", "field_grid", "field_to_host",
+               "marching_tets", "colors")
 
 # (name, B, T=S, H, D) of every flash-attention call on the main path:
 # level 0 at the CFG batch of 4 views (8) and of 28 views (56), then
@@ -207,8 +225,9 @@ def kernel_bound(flops: float, nbytes: float, n_exp: float, exp_rate: float):
 def seeded_state_dict(module, seed: int) -> dict:
     """Non-zero f32 weights for ``module`` (built on the meta device):
     N(0, 1/fan_in) kernels, 1 + N(0, 0.1^2) norm scales, N(0, 0.1^2)
-    biases, N(0, 0.02^2) CLIP embeddings.  Zero-initialised output convs
-    would otherwise make every comparison check nothing."""
+    biases and BN means, 1 + U(0, 0.5) BN variances, N(0, 0.02^2) CLIP
+    embeddings.  Zero-initialised output convs would otherwise make every
+    comparison check nothing."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
@@ -224,6 +243,8 @@ def seeded_state_dict(module, seed: int) -> dict:
             x /= math.sqrt(p[0].numel())
         elif leaf == "weight":
             x = 1.0 + 0.1 * x
+        elif leaf == "running_var":
+            x = 1.0 + 0.5 * torch.rand(p.shape, generator=gen)
         else:
             x *= 0.1
         out[name] = x
@@ -741,7 +762,236 @@ def phase_sampling(stage, smi):
             f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
             f"stage2 pixels in (0.01, 0.99) {inside:.3f}{rerun} | {smi}"
         )
-    return launches
+    return launches, s2
+
+
+def recon_params(seed: int) -> dict:
+    """State dicts of a full-width ReconStage: ``seeded_state_dict`` weights
+    for the feature, cost-volume and blending nets; the SDF MLP keeps the
+    port's geometric init (a sphere, so the mesh is not empty) with its
+    latent columns drawn N(0, 0.01^2), so that the volume moves the
+    surface."""
+    import torch
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+
+    base = ReconStage(ReconConfig(), seed=seed, device="cpu")
+    params = {
+        key: seeded_state_dict(module, seed + i)
+        for i, (key, module) in enumerate(base.modules().items())
+    }
+    gen = torch.Generator().manual_seed(seed)
+    d_latent = ReconConfig().regnet_d_out
+    for name, p in base.sdf_net.sdf_layer.state_dict().items():
+        x = p.clone()
+        if name.endswith(".v") and not name.startswith("lin0."):
+            x[-d_latent:] = 0.01 * torch.randn(x[-d_latent:].shape, generator=gen)
+        params["sdf"][f"sdf_layer.{name}"] = x
+    return params
+
+
+def recon_run(stage, images, cams, resolution: int):
+    """One timed reconstruct: (mesh, {span: seconds}, total seconds)."""
+    import torch
+
+    from one2345_tpu_torch.core.profiling import Timer
+
+    timer = Timer(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = stage.reconstruct(images, cams, resolution=resolution, timer=timer)
+    torch.cuda.synchronize()
+    return mesh, timer.report(), time.perf_counter() - t0
+
+
+def check_mesh(name: str, mesh):
+    import numpy as np
+
+    v, f, c = mesh["vertices"], mesh["faces"], mesh["colors"]
+    if not np.isfinite(v).all() or len(f) <= 1000:
+        fail(f"recon {name}: {len(f)} faces (need > 1000), finite vertices {np.isfinite(v).all()}")
+    if f.min() < 0 or f.max() >= len(v):
+        fail(f"recon {name}: face indices in [{f.min()}, {f.max()}] for {len(v)} vertices")
+    if c.shape != v.shape or not np.isfinite(c).all() or c.min() < 0 or c.max() > 1:
+        fail(f"recon {name}: colors {c.shape} not finite in [0, 1]")
+
+
+def phase_recon(s2, smi):
+    """The reconstruction stage at full width on the sampled views: returns
+    (bf16 stage, images, cameras) for the profiled run of phase 9."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.geometry.cameras import build_recon_cameras
+    from one2345_tpu_torch.native import build as native_build
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+
+    t0 = time.perf_counter()
+    native_build.build()
+    gxx_s = time.perf_counter() - t0
+    images = s2.reshape(-1, *s2.shape[-3:]).contiguous()  # [32, 256, 256, 3]
+    cams = build_recon_cameras(POLAR_DEG)
+    t0 = time.perf_counter()
+    params = recon_params(seed=30)
+    stage = ReconStage(ReconConfig(dtype="bfloat16"), params=params, device="cuda")
+    log(
+        f"phase recon: ReconStage(ReconConfig(dtype='bfloat16')) at full width, "
+        f"{tuple(images.shape)} views, 96^3 volume, R={RECON_RESOLUTION}; built in "
+        f"{time.perf_counter() - t0:.1f} s, marching tets library in {gxx_s:.1f} s"
+    )
+    meshes = {}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        mesh, spans, total = recon_run(stage, images, cams, RECON_RESOLUTION)
+        check_mesh(run, mesh)
+        meshes[run] = mesh
+        log(
+            f"phase recon ({run}): "
+            + ", ".join(f"{k} {spans[k]:.4f} s" for k in RECON_SPANS)
+            + f", total {total:.4f} s | {len(mesh['vertices'])} vertices, "
+            f"{len(mesh['faces'])} faces | peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}"
+        )
+    cold, warm = meshes["cold"], meshes["warm"]
+    if len(cold["faces"]) != len(warm["faces"]) or cold["vertices"].shape != warm["vertices"].shape:
+        fail(f"recon warm {len(warm['faces'])} faces, cold {len(cold['faces'])}")
+    rerun = float(np.abs(warm["vertices"] - cold["vertices"]).max())
+    if rerun > 1e-5:
+        fail(f"recon warm vertices differ from cold by {rerun} (> 1e-5)")
+
+    # the f32 stage on the card against the same stage on the CPU
+    f32 = {dev: ReconStage(ReconConfig(), params=params, device=dev) for dev in ("cuda", "cpu")}
+    projs = torch.as_tensor(cams["affines"][1:33], dtype=torch.float32)
+    vols, times = {}, {}
+    for dev, st in f32.items():
+        t0 = time.perf_counter()
+        feats = st.feature_maps(images.to(st.device))
+        vols[dev] = st.conditional_volume(feats, projs.to(st.device))
+        u = st.field_grid(vols[dev]["volume"], RECON_CHECK_RESOLUTION)
+        vols[dev]["field"] = u.cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        times[dev] = time.perf_counter() - t0
+    card = {k: v.cpu() for k, v in vols["cuda"].items()}
+    ref = vols["cpu"]
+    rel = float(torch.linalg.vector_norm(card["volume"] - ref["volume"])
+                / torch.linalg.vector_norm(ref["volume"]))
+    mask_same = bool(torch.equal(card["mask"], ref["mask"]))
+    field_err = float((card["field"] - ref["field"]).abs().max())
+    valid = float(ref["mask"].mean())
+    if not mask_same or not rel <= VOLUME_TOL or not field_err <= FIELD_TOL:
+        fail(
+            f"recon card f32 vs CPU f32: mask identical {mask_same}, volume relative L2 {rel} "
+            f"(<= {VOLUME_TOL}), field max abs {field_err} (<= {FIELD_TOL})"
+        )
+    # the bf16 conv path against the f32 one, on the card
+    out16 = stage.conditional_volume(stage.feature_maps(images), projs.to(stage.device))
+    u16 = stage.field_grid(out16["volume"], RECON_CHECK_RESOLUTION).cpu()
+    u32 = card["field"]
+    # how far the conditional volume moves the f32 field off the bare
+    # geometric-init sphere (a zero volume)
+    sphere = f32["cuda"].field_grid(torch.zeros_like(vols["cuda"]["volume"]),
+                                    RECON_CHECK_RESOLUTION).cpu()
+    far = u32.abs() > 1e-2
+    agree = float((torch.sign(u16[far]) == torch.sign(u32[far])).float().mean())
+    if not agree >= SIGN_AGREEMENT:
+        fail(f"recon bf16 field signs agree with f32 on {agree} of |u| > 1e-2 (>= {SIGN_AGREEMENT})")
+    log(
+        f"phase recon: card f32 vs CPU f32 at full width: mask identical, valid voxels "
+        f"{valid:.4f}, volume relative L2 {rel:.3e} (<= {VOLUME_TOL}), field R="
+        f"{RECON_CHECK_RESOLUTION} max abs {field_err:.3e} (<= {FIELD_TOL}), |u| max "
+        f"{float(u32.abs().max()):.3f}, moved by the volume up to "
+        f"{float((u32 - sphere).abs().max()):.3e}; bf16 vs f32 field sign agreement {agree:.6f} on "
+        f"{float(far.float().mean()):.4f} of the lattice (>= {SIGN_AGREEMENT}), max abs "
+        f"{float((u16 - u32).abs().max()):.3e}; warm vs cold vertices max abs {rerun:.3e}; "
+        f"f32 card {times['cuda']:.2f} s, CPU {times['cpu']:.2f} s"
+    )
+    del f32, vols, card, ref
+    return stage, images, cams
+
+
+def kernel_family(name: str) -> str:
+    """The family of a device kernel, by its name."""
+    n = name.lower()
+    for family, keys in (
+        ("copies", ("memcpy", "memset", "copy_kernel", "catarray")),
+        ("convs", ("conv", "cudnn", "fprop", "implicit", "winograd", "nchwtonhwc", "nhwctonchw")),
+        ("matmuls", ("gemm", "gemv", "cutlass", "cublas")),
+        ("gathers", ("index", "gather", "scatter", "grid_sampler")),
+        ("resize", ("upsample", "interp")),
+        ("reductions", ("reduce",)),
+        ("elementwise", ("elementwise", "fill")),
+    ):
+        if any(k in n for k in keys):
+            return family
+    return "other"
+
+
+def phase_recon_profile(stage, images, cams, smi):
+    """One warm reconstruct under torch.profiler: device ms by kernel
+    family, in all and per span, the device's busy share of the wall time,
+    host ms of marching tets.  The spans' own ranges on the device timeline
+    (``Timer``'s record_function annotations) place each kernel in its
+    span and are not counted as device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from one2345_tpu_torch.core.profiling import Timer
+
+    timer = Timer(device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage.reconstruct(images, cams, resolution=RECON_RESOLUTION, timer=timer)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = {e.name: e.time_range for e in device if e.name in RECON_SPANS}
+    events = [e for e in device if e.name not in RECON_SPANS]
+    if not events:
+        fail("profiler: no device events in the profiled reconstruct")
+    busy, end = 0.0, -math.inf
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    families: dict = {}
+    per_span: dict = {}
+    top: dict = {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        fam = kernel_family(e.name)
+        span = next((k for k, r in ranges.items() if r.start <= e.time_range.start < r.end), "none")
+        families[fam] = families.get(fam, 0.0) + ms
+        per_span.setdefault(span, {})
+        per_span[span][fam] = per_span[span].get(fam, 0.0) + ms
+        top[e.name] = top.get(e.name, 0.0) + ms
+    device_ms = sum(families.values())
+    spans = timer.report()
+
+    def by_family(d):
+        return ", ".join(f"{k} {v:.2f}" for k, v in sorted(d.items(), key=lambda kv: -kv[1]))
+
+    log(
+        f"phase recon profile: wall {wall_ms:.1f} ms, device {device_ms:.1f} ms in "
+        f"{len(events)} device events, busy {busy / 1e3:.1f} ms = {busy / 1e3 / wall_ms:.3f} of "
+        f"the wall | by family (ms): {by_family(families)} | marching tets on the host "
+        f"{spans['marching_tets'] * 1e3:.1f} ms | {smi}"
+    )
+    for span in (*RECON_SPANS, "none"):
+        if span in spans or span in per_span:
+            host = f"{spans[span] * 1e3:.1f} ms" if span in spans else "-"
+            fams = per_span.get(span, {})
+            log(
+                f"phase recon profile: span {span}: wall {host}, device "
+                f"{sum(fams.values()):.2f} ms ({by_family(fams) or 'no device work'})"
+            )
+    log("phase recon profile: top kernels (device ms): " + "; ".join(
+        f"{k[:100]} {v:.2f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:12]
+    ))
 
 
 def train_batch(B: int):
@@ -884,9 +1134,12 @@ def main() -> int:
     unet_weights = phase_unet()
     phase_grad()
     stage, params = build_stage(unet_weights)
-    launches = phase_sampling(stage, smi)
+    launches, s2 = phase_sampling(stage, smi)
+    recon_stage, recon_images, recon_cams = phase_recon(s2, smi)
+    del s2
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
     phase_device_times(rows, bwd_rows)
+    phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
 
     def json_bound_by(by: str) -> str:
         # the line names two kinds of bound: the exp unit's rate is a peak

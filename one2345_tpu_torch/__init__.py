@@ -6,13 +6,19 @@ It imports torch, numpy and einops only, never JAX or ``one2345_tpu``.
 
 Ported so far: the multi-view generation half of the image -> mesh path
 (Zero123-XL stage-1 / stage-2 sampling), with the UNet's self-attention on
-a hand-written CUDA flash-attention kernel (``csrc/flash_attention_fwd.cu``).
+hand-written CUDA flash-attention kernels (``csrc/``); the Zero123 finetune
+step; the lod0 reconstruction stage (32 views -> colored mesh).
 
 Subpackages
 -----------
-core         config dataclasses, timing
+core         config dataclasses, device, timing
 diffusion    Zero123-XL latent diffusion (UNet, VAE, CLIP, DDIM)
+geometry     camera rig, projection, bilinear / trilinear sampling
+native       the host C++ marching tetrahedra, built with g++ at first use
+nn           building blocks of the reconstruction networks
 ops          hand-written CUDA kernels and their plain PyTorch versions
+recon        reconstruction: FPN, cost volume, SDF MLP, blending net, mesh
+training     the Zero123 finetune step
 utils        weight conversion from the JAX parameter trees
 """
 

@@ -1,8 +1,9 @@
-"""Dataclass configs of the diffusion stage.
+"""Dataclass configs of the diffusion and reconstruction stages.
 
-A copy of the diffusion dataclasses of ``one2345_tpu/core/config.py`` (the
-port imports nothing of the JAX package).  Field names and defaults are the
-same, so a config serialized by either package loads in the other.
+A copy of the diffusion dataclasses and of ``ReconConfig`` of
+``one2345_tpu/core/config.py`` (the port imports nothing of the JAX
+package).  Field names and defaults are the same, so a config serialized by
+either package loads in the other.
 """
 
 from __future__ import annotations
@@ -108,3 +109,91 @@ class DiffusionConfig(_ConfigBase):
     unet: UNetConfig = field(default_factory=UNetConfig)
     vae: VAEConfig = field(default_factory=VAEConfig)
     clip: CLIPVisionConfig = field(default_factory=CLIPVisionConfig)
+
+
+@dataclass(frozen=True)
+class ReconConfig(_ConfigBase):
+    """Generalizable SparseNeuS reconstruction.
+
+    Defaults reproduce reconstruction/confs/one2345_lod0_val_demo.conf
+    (lod0 inference config: 96^3 volume, voxel 2/95, 56-ch fused pyramid
+    features compressed to 16, regnet 16-out, 64+64 samples, white bkgd).
+    """
+
+    # inputs
+    image_hw: Sequence[int] = (256, 256)
+    # volume
+    vol_dims: Sequence[int] = (96, 96, 96)
+    voxel_size: float = 2.0 / 95.0
+    partial_vol_origin: Sequence[float] = (-1.0, -1.0, -1.0)
+    # coarse-to-fine (conf sdf_network_lod1: 192^3, voxel 2/191, compress 8)
+    num_lods: int = 1
+    lod1_vol_dims: Sequence[int] = (192, 192, 192)
+    lod1_voxel_size: float = 2.0 / 191.0
+    lod1_d_compress: int = 8
+    lod1_prune_threshold: float = 0.02
+    # depth-map-filtered pruning (trainer_generic prune_depth_filter:131;
+    # depth maps traced at size/4, band = d_plane_nums * voxel_size,
+    # get_valid_sparse_coords_by_sdf_depthfilter call at :467-473)
+    lod1_prune_depth_filter: bool = False
+    lod1_depth_plane_nums: int = 12
+    # feature nets
+    ch_in: int = 56
+    d_pyramid_feature_compress: int = 16
+    regnet_d_out: int = 16
+    hidden_dim: int = 128
+    num_sdf_layers: int = 4
+    multires: int = 6
+    # rendering network
+    in_geometry_feat_ch: int = 16
+    in_rendering_feat_ch: int = 56
+    anti_alias_pooling: bool = True
+    # renderer
+    n_samples: int = 64
+    n_importance: int = 64
+    n_outside: int = 0
+    perturb: float = 1.0
+    alpha_type: str = "div"
+    variance_init_val: float = 0.2
+    use_white_bkgd: bool = True
+    # training-regime extension (0.0 = reference semantics): fraction of
+    # training rays that query the blending net with the surface normal —
+    # the direction the mesh-coloring pass uses (renderer.RenderParams.
+    # normal_query_prob has the full rationale)
+    normal_query_prob: float = 0.0
+    # losses / training (one2345_lod0_val_demo.conf:35-56)
+    learning_rate: float = 2e-4
+    end_iter: int = 200_000
+    n_rays: int = 512
+    anneal_start: int = 0
+    anneal_end: int = 25_000
+    # lod1 training (one2345_lod_train.conf:50-51,62; trainer_generic.py
+    # train_step:269-319).  NOTE the reference's get_weight quirk
+    # (trainer_generic.py:1131-1134): for lod==1 the weight ramp runs from
+    # anneal_end_lod1 to 2*anneal_end_lod1 (its start is the END value).
+    anneal_start_lod1: int = 0
+    anneal_end_lod1: int = 15_000
+    # if_fix_lod0_networks: freeze lod0 (stop-gradient, no lod0 loss) and
+    # train only the lod1 branch (trainer_generic.py:191-215,243-245)
+    fix_lod0_networks: bool = False
+    sdf_igr_weight: float = 0.1
+    sdf_sparse_weight: float = 0.02
+    sdf_decay_param: float = 100.0
+    fg_bg_weight: float = 0.01
+    # the reference hard-codes "iter_step > 50000" before the mask loss
+    # kicks in (trainer_generic.py cal_losses_sdf) — sized for its 200k-iter
+    # schedule.  Short-schedule runs (overfit benchmarks) scale it down.
+    fg_bg_gate_iter: int = 50_000
+    bg_ratio: float = 0.3
+    # mesh extraction
+    mesh_resolution: int = 256
+    mesh_threshold: float = 0.0
+    # the JAX package's packed-sign field fetch; the port keeps the f32
+    # field and copies it to the host once, so it does not read this flag
+    sparse_field_fetch: bool = True
+    # compute dtype of the conv feature path (FPN fusion + compress +
+    # cost-volume U-Net + blending net).  The SDF MLP always runs f32
+    # (SdfVolumeNetwork.mlp_dtype) and the cost-volume accumulation is
+    # f32 regardless.  Defaults f32 so every library construction keeps
+    # reference numerics; the inference pipeline opts into bf16.
+    dtype: str = "float32"

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from one2345_tpu_torch.core.config import DiffusionConfig, UNetConfig
+from one2345_tpu_torch.core.device import resolve_device
 from one2345_tpu_torch.diffusion.clip import CLIPVisionTower, preprocess_for_clip
 from one2345_tpu_torch.diffusion.ddim import ddim_sample, trim_for_sample
 from one2345_tpu_torch.diffusion.schedule import DDIMSchedule, make_ddim_schedule
@@ -84,19 +85,6 @@ def noise_seed(seed: int, view_id: int, draw: int) -> int:
     """64-bit generator seed for one (seed, view id, draw index)."""
     state = np.random.SeedSequence([seed, view_id, draw]).generate_state(2, np.uint32)
     return int(state[0]) << 32 | int(state[1])
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` -> the card; raises when CUDA is absent (pass 'cpu' to run
-    the plain path on the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: one2345_tpu_torch runs on the card by "
-                "default; pass device='cpu' to run on the CPU"
-            )
-        device = "cuda"
-    return torch.device(device)
 
 
 class Zero123Stage:

@@ -1,19 +1,25 @@
-"""Carry the JAX package's Zero123 parameters over to the port.
+"""Carry the JAX package's parameters over to the port.
 
 ``zero123_from_jax(params)`` takes ``one2345_tpu``'s ``Zero123Stage.params``
 (nested dicts of arrays, keys 'unet', 'encoder', 'decoder', 'clip',
 'cc_projection', each a flax variables dict) and returns one state dict per
 module, which the port's modules load with ``strict=True``;
-``trainable_from_jax`` does the same for the trainer's trainable tree.
+``trainable_from_jax`` does the same for the trainer's trainable tree, and
+``recon_from_jax`` for ``ReconStage.params`` ('fusion', 'sdf', 'render',
+'variance').
 
 The port names its submodules after the flax scopes, so the mapping is
 mechanical:
 - scope path 'a/b/c' -> 'a.b.c'; the auto-named 'GroupNorm_0' scope inside
   the norm wrappers is dropped;
-- conv kernels HWIO -> OIHW; Dense kernels (in, out) -> Linear weight
-  (out, in); norm 'scale' -> 'weight';
-- free parameters (CLIP embeddings and 'proj', the CCProjection 'kernel'
-  used as ``x @ kernel``) keep their name and layout.
+- conv kernels HWIO -> OIHW and DHWIO -> OIDHW; Dense kernels (in, out) ->
+  Linear weight (out, in); norm 'scale' -> 'weight';
+- the 'batch_stats' collection: 'mean' -> 'running_mean', 'var' ->
+  'running_var';
+- every other leaf keeps its name and layout: biases, free parameters (CLIP
+  embeddings and 'proj', the CCProjection 'kernel' used as ``x @ kernel``,
+  the blending net's 's', the variance scalar) and the weight-normalised
+  layers' 'v' [in, out] and 'g'.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ import numpy as np
 import torch
 
 _NORM_SCOPE = re.compile(r"GroupNorm_\d+")
+_STATS = {"mean": "running_mean", "var": "running_var"}
+# flax conv kernels (spatial..., in, out) -> torch (out, in, spatial...)
+_KERNEL_AXES = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def _flatten(tree, prefix=()):
@@ -36,24 +45,29 @@ def _flatten(tree, prefix=()):
 
 
 def flax_to_state_dict(variables: Mapping, free=()) -> dict:
-    """One flax variables dict -> a torch state dict.
+    """One flax variables dict ('params', and 'batch_stats' where the module
+    has batch norms) -> a torch state dict.
 
-    :param free: leaf names kept as they are (no rename, no transpose)
+    :param free: top-level leaf names kept as they are (no rename, no
+        transpose)
     """
-    tree = variables.get("params", variables)
     out = {}
-    for path, leaf in _flatten(tree):
+    leaves = [(path, leaf, False) for path, leaf in _flatten(variables.get("params", variables))]
+    leaves += [(path, leaf, True) for path, leaf in _flatten(variables.get("batch_stats", {}))]
+    for path, leaf, stat in leaves:
         scope = [p for p in path[:-1] if not _NORM_SCOPE.fullmatch(p)]
         name = path[-1]
         a = np.asarray(leaf, dtype=np.float32)
-        if name in free and not scope:
+        if stat:
+            name = _STATS[name]
+        elif name in free and not scope:
             pass
         elif name == "kernel":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            a = a.transpose(_KERNEL_AXES[a.ndim]) if a.ndim in _KERNEL_AXES else a.T
             name = "weight"
         elif name == "scale":
             name = "weight"
-        out[".".join(scope + [name])] = torch.from_numpy(np.ascontiguousarray(a))
+        out[".".join(scope + [name])] = torch.from_numpy(np.array(a, order="C"))
     return out
 
 
@@ -79,3 +93,10 @@ def zero123_from_jax(params: Mapping) -> dict:
             params["clip"], free=("class_embedding", "positional_embedding", "proj")
         ),
     }
+
+
+def recon_from_jax(params: Mapping) -> dict:
+    """JAX ``ReconStage.params`` (lod0) -> the state dicts
+    ``recon.pipeline.ReconStage`` loads: {'fusion', 'sdf', 'render',
+    'variance'}."""
+    return {name: flax_to_state_dict(params[name]) for name in ("fusion", "sdf", "render", "variance")}

@@ -38,6 +38,20 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.ops.flash_attention",
         "one2345_tpu_torch.training.data",
         "one2345_tpu_torch.training.zero123_trainer",
+        "one2345_tpu_torch.core.device",
+        "one2345_tpu_torch.nn.layers",
+        "one2345_tpu_torch.geometry.cameras",
+        "one2345_tpu_torch.geometry.projection",
+        "one2345_tpu_torch.geometry.sampling",
+        "one2345_tpu_torch.native.build",
+        "one2345_tpu_torch.recon.costreg",
+        "one2345_tpu_torch.recon.featurenet",
+        "one2345_tpu_torch.recon.mesh_extract",
+        "one2345_tpu_torch.recon.pipeline",
+        "one2345_tpu_torch.recon.renderer",
+        "one2345_tpu_torch.recon.rendering_network",
+        "one2345_tpu_torch.recon.sdf_network",
+        "one2345_tpu_torch.utils.convert_jax",
     ):
         assert module in report["modules"]
     leaked = [
@@ -70,3 +84,20 @@ def test_backward_wrappers_and_trainer_are_in_the_package():
         pytest.skip("a card is present: the default device resolves to it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Zero123Trainer(None, {})
+
+
+def test_recon_stage_defaults_to_the_card():
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReconStage()
+
+
+def test_marching_tets_source_is_the_jax_package_s():
+    """The port keeps its own copy of the C++ extractor, byte for byte."""
+    copy = os.path.join(REPO, "one2345_tpu_torch", "native", "marching_tets.cpp")
+    with open(copy, "rb") as a, open(os.path.join(REPO, "one2345_tpu", "native",
+                                                   "marching_tets.cpp"), "rb") as b:
+        assert a.read() == b.read()

@@ -16,9 +16,11 @@ _FREE_SMALL = ("class_embedding", "positional_embedding")
 def randomize(tree, seed: int):
     """A copy of a flax variables tree with every leaf redrawn from numpy:
     kernels and projections N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2),
-    biases N(0, 0.1^2), CLIP embeddings N(0, 0.02^2).  The JAX init leaves
-    several output convs at exactly zero, which would make a parity check
-    check nothing."""
+    biases N(0, 0.1^2), CLIP embeddings N(0, 0.02^2), batch-norm running
+    means N(0, 0.1^2) and running variances 1 + U(0, 0.5) (a variance must
+    stay positive: rsqrt(var + eps) of a negative one is NaN on both sides).
+    The JAX init leaves several output convs at exactly zero, which would
+    make a parity check check nothing."""
     rng = np.random.default_rng(seed)
 
     def walk(node):
@@ -33,6 +35,10 @@ def randomize(tree, seed: int):
                 leaf = 1.0 + 0.1 * rng.standard_normal(shape)
             elif key == "bias":
                 leaf = 0.1 * rng.standard_normal(shape)
+            elif key == "mean":
+                leaf = 0.1 * rng.standard_normal(shape)
+            elif key == "var":
+                leaf = 1.0 + 0.5 * rng.uniform(size=shape)
             elif key in _FREE_SMALL:
                 leaf = 0.02 * rng.standard_normal(shape)
             else:  # conv / dense kernels, CLIP 'proj', CCProjection kernel
