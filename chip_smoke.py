@@ -27,7 +27,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (stage 1 views 0-3, stage 2 of view 0, stage 1 of the second ring at the
    fallback polar angle of 90 degrees, stage 2 of the other 7 views), with
    seeded non-zero weights.  Run twice; launches are counted on the second;
-7. recon: the reconstruction stage (ReconStage, lod0, ReconConfig() at
+7. elevation: LoFTR (ResNet-FPN 8_2, 4 + 1 linear-attention layer pairs,
+   dual softmax, 5x5 fine windows, K=1024) at 480^2 with seeded weights on
+   the 4 stage-2 views of view 0 of the warm sampling run: the card's f32
+   matcher against the CPU's on one pair (backbone features, confidence
+   matrix, the slates at the first threshold that keeps 64 matches), the
+   view against itself (identity matches), the two-stage pose sweep on
+   synthetic slates of a known elevation (73 degrees) on the card and the
+   CPU, and ElevationEstimator.estimate with the bf16 matcher of
+   PipelineConfig, cold and warm, with each pair's valid count;
+8. recon: the reconstruction stage (ReconStage, lod0, ReconConfig() at
    full width, bf16 conv path) on the 32 stage-2 images of the warm
    sampling run and the rig's cameras at the same fallback polar angle:
    image stack -> 96^3 cost volume -> f32 256^3 field -> marching tets ->
@@ -37,19 +46,28 @@ Phases, one line each; any failure exits non-zero and prints no result:
    faces, indices in range, colors in [0, 1], warm equal to cold); the
    card's f32 stage against the CPU's (the conditional volume and the
    field at 64^3), and the bf16 field's signs against the f32 one's;
-8. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
+9. pipeline: the port's own entry point, One2345Pipeline(PipelineConfig())
+   .run(skip_preprocess=True, output_format=".obj") on the weights of
+   phases 6 to 8, cold and warm: seconds per span of the runner, the
+   estimated elevation and the second ring it picked, 4000 K1 launches, the
+   mesh checks of phase 8, every artifact (8 + 32 PNGs, pose.json,
+   mesh.ply, mesh.obj) written (one PNG read back) and then removed;
+10. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
    remat, f32 weights, bf16 autocast): one cold step and five warm ones,
    each timed, its launches counted, and the first one's gradients, params
    and EMA checked;
-9. device times: each kernel's device time per launch (torch.profiler) at
+11. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 to 8, which a profiled run can slow on the
-   host; then one warm reconstruct under torch.profiler: device ms by
-   kernel family, the device's busy share, host ms of marching tets.
+   after the timed phases 6 to 10, which a profiled run can slow on the
+   host; then one warm reconstruct and one warm elevation estimate under
+   torch.profiler: device ms by kernel family, the device's busy share,
+   host ms of marching tets.
 
-Then the kernels' JSON line, the nvidia-smi line, and the result line.
-Needs one card; writes nothing outside its checkout.
+Then the kernels' JSON line (K1's launches are those of the warm pipeline
+run), the nvidia-smi line, and the result line.  Needs one card; writes
+nothing outside its checkout (the pipeline's artifacts go to _smoke_out/,
+removed at the end of phase 9).
 """
 
 from __future__ import annotations
@@ -92,6 +110,19 @@ FIELD_TOL = 1e-3  # max abs, f32 field at 64^3, card against CPU
 SIGN_AGREEMENT = 0.999  # bf16 field against the f32 one where |u| > 1e-2
 RECON_SPANS = ("feature_maps", "conditional_volume", "field_grid", "field_to_host",
                "marching_tets", "colors")
+# the elevation phase: card f32 LoFTR against CPU f32 on one pair at 480^2
+LOFTR_FEATURE_TOL = 1e-3  # relative L2, coarse and fine backbone features
+LOFTR_CONF_TOL = 1e-3  # relative L2, the dual-softmax confidence matrix
+LOFTR_SET_AGREEMENT = 0.99  # shared valid (i, j) of the card's and CPU's slates, of the union
+LOFTR_KPT_TOL = 1e-2  # px, fine keypoints of the shared entries
+LOFTR_MIN_VALID = 64  # the check's threshold is the first of LOFTR_THRESHOLDS that keeps this many
+LOFTR_THRESHOLDS = (0.05, 0.01, 0.001, 0.0)
+SWEEP_GT = 73.0  # the synthetic slates' elevation (tests/test_elevation_solver.py)
+SWEEP_TOL = 1e-4  # relative, the card's error curve against the CPU's
+PIPELINE_SPANS = ("preprocess", "stage1", "stage2_view0", "elevation", "stage2", "reconstruct")
+# the runner's outputs go here, inside the checkout (gitignored), and are
+# removed at the end of the phase
+PIPELINE_OUT = os.path.join(REPO, "_smoke_out")
 
 # (name, B, T=S, H, D) of every flash-attention call on the main path:
 # level 0 at the CFG batch of 4 views (8) and of 28 views (56), then
@@ -765,6 +796,270 @@ def phase_sampling(stage, smi):
     return launches, s2
 
 
+def loftr_weights(seed: int) -> dict:
+    """``seeded_state_dict`` weights of the full-width LoFTR modules (BN
+    statistics included)."""
+    import torch
+
+    from one2345_tpu_torch.elevation.loftr import LoFTRModules
+
+    with torch.device("meta"):
+        shapes = LoFTRModules()
+    return seeded_state_dict(shapes, seed)
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def slate_entries(res, wc: int) -> dict:
+    """{(i, j) coarse cells: fine kpts1} of the valid entries of a one-pair
+    slate."""
+    k0, k1, valid = (x[0].cpu() for x in (res.kpts0, res.kpts1, res.valid))
+    i = (k0[:, 1] // 8) * wc + k0[:, 0] // 8
+    j = (k1[:, 1] / 8).round() * wc + (k1[:, 0] / 8).round()
+    return {(int(a), int(b)): k1[n] for n, (a, b) in enumerate(zip(i, j)) if valid[n]}
+
+
+def synthetic_slates(gt: float, K, n: int = 64, kpad: int = 1024, noise: float = 0.3,
+                     seed: int = 3):
+    """The six match slates of ``n`` points seen from the 4 poses of
+    elevation ``gt``, with pixel noise, padded with invalid entries to
+    ``kpad`` (the recipe of tests/test_elevation_solver.py)."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.elevation.solver import PAIRS, pose_hypothesis
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.25, 0.25, size=(n, 3))
+    poses = pose_hypothesis(torch.tensor(gt)).double().numpy()
+
+    def project(pose):
+        w2c = np.linalg.inv(pose)
+        uv = (pts @ w2c[:3, :3].T + w2c[:3, 3][None]) @ K.T
+        return uv[:, :2] / uv[:, 2:3]
+
+    projs = [project(poses[i]) for i in range(4)]
+    k0 = np.zeros((len(PAIRS), kpad, 2), np.float32)
+    k1 = np.zeros((len(PAIRS), kpad, 2), np.float32)
+    conf = np.zeros((len(PAIRS), kpad), np.float32)
+    valid = np.zeros((len(PAIRS), kpad), bool)
+    for p, (i, j) in enumerate(PAIRS):
+        k0[p, :n] = projs[i] + rng.normal(0, noise, (n, 2))
+        k1[p, :n] = projs[j] + rng.normal(0, noise, (n, 2))
+        conf[p, :n] = 1.0
+        valid[p, :n] = True
+    return tuple(torch.from_numpy(x) for x in (k0, k1, conf, valid))
+
+
+def phase_elevation(views, smi):
+    """LoFTR and the elevation solver at full width on the 4 stage-2 views
+    of view 0: (a) the card's f32 matcher against the CPU's on one pair at
+    480^2 (features, confidence, slates); (b) the view against itself;
+    (c) the two-stage sweep on synthetic slates of a known elevation, card
+    against CPU; (d) ElevationEstimator.estimate with the bf16 matcher of
+    PipelineConfig, cold and warm.  Returns (LoFTR weights, the bf16
+    estimator) for the pipeline phase and the profiled call of phase 11."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.core.config import PipelineConfig
+    from one2345_tpu_torch.elevation import loftr, solver
+
+    weights = loftr_weights(seed=60)
+    gray = solver.grayscale_480(views.float().cpu())  # [4, 480, 480], both devices' input
+    matchers = {dev: loftr.LoFTRMatcher(weights, device=dev) for dev in ("cuda", "cpu")}
+    out, times = {}, {}
+    for dev, m in matchers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coarse, fine = m.extract(gray[:2].to(dev))
+        c0, c1, conf = m.coarse_confidence(coarse[:1], coarse[1:])
+        torch.cuda.synchronize()
+        times[dev] = time.perf_counter() - t0
+        out[dev] = (coarse, fine, conf)
+    rels = [rel_l2(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    if not (rels[0] <= LOFTR_FEATURE_TOL and rels[1] <= LOFTR_FEATURE_TOL
+            and rels[2] <= LOFTR_CONF_TOL):
+        fail(f"LoFTR card f32 vs CPU f32 relative L2 coarse/fine/conf {rels} "
+             f"(<= {LOFTR_FEATURE_TOL}, {LOFTR_FEATURE_TOL}, {LOFTR_CONF_TOL})")
+    wc = out["cpu"][0].shape[2]
+    card = matchers["cuda"]
+    for thr in LOFTR_THRESHOLDS:
+        card.threshold = thr
+        res = card.match_features(out["cuda"][0], out["cuda"][1], [0], [1])
+        n_valid = int(res.valid.sum())
+        if n_valid >= LOFTR_MIN_VALID:
+            break
+    else:
+        fail(f"LoFTR slate keeps {n_valid} valid matches at threshold {thr} (< {LOFTR_MIN_VALID})")
+    matchers["cpu"].threshold = thr
+    res_cpu = matchers["cpu"].match_features(out["cpu"][0], out["cpu"][1], [0], [1])
+    a = slate_entries(res, wc)
+    b = slate_entries(res_cpu, wc)
+    shared = a.keys() & b.keys()
+    agree = len(shared) / max(len(a.keys() | b.keys()), 1)
+    kpt_err = max((float((a[k] - b[k]).abs().max()) for k in shared), default=0.0)
+    if not (agree >= LOFTR_SET_AGREEMENT and kpt_err <= LOFTR_KPT_TOL):
+        fail(f"LoFTR slates card vs CPU: shared (i, j) {agree} of the union (>= "
+             f"{LOFTR_SET_AGREEMENT}), fine keypoints max abs {kpt_err} (<= {LOFTR_KPT_TOL})")
+    # (b) the view against itself: valid matches are identity correspondences
+    same = card.match_pair(gray[0].cuda(), gray[0].cuda())
+    n_same = int(same.valid.sum())
+    if n_same == 0:
+        fail(f"LoFTR: a view against itself kept no match at threshold {thr}")
+    off = float((same.kpts0[same.valid] - same.kpts1[same.valid]).abs().max())
+    if off > 8.0:
+        fail(f"LoFTR: a view against itself matched {off} px off the identity (> 8)")
+    log(
+        f"phase elevation: LoFTR f32 at 480^2 full width, seeded weights, card vs CPU on views "
+        f"(0, 1) of view 0: relative L2 coarse {rels[0]:.3e}, fine {rels[1]:.3e} (<= "
+        f"{LOFTR_FEATURE_TOL}), confidence {rels[2]:.3e} (<= {LOFTR_CONF_TOL}), max conf "
+        f"{float(out['cpu'][2].max()):.4f}; slates at threshold {thr}: {n_valid} valid on the "
+        f"card, {int(res_cpu.valid.sum())} on the CPU, shared (i, j) {agree:.4f} of the union "
+        f"(>= {LOFTR_SET_AGREEMENT}), fine keypoints max abs {kpt_err:.3e} px (<= "
+        f"{LOFTR_KPT_TOL}); view against itself {n_same} valid, max |kpts0 - kpts1| "
+        f"{off:.3f} px (<= 8); card {times['cuda']:.3f} s, CPU {times['cpu']:.2f} s"
+    )
+
+    # (c) the two-stage sweep on synthetic slates, card against CPU
+    K = np.array([[280.0, 0, 128], [0, 280.0, 128], [0, 0, 1]], np.float32)
+    packed = synthetic_slates(SWEEP_GT, K)
+    elevs = torch.arange(30.0, 150.0, 1.0)
+    curves, ests = {}, {}
+    for dev in ("cuda", "cpu"):
+        Kt = torch.from_numpy(K).to(dev)
+        p = tuple(x.to(dev) for x in packed)
+        curves[dev] = solver._sweep(elevs.to(dev), Kt, p, len(solver.PAIRS)).cpu()
+        ests[dev] = float(solver._sweep_two_stage(Kt, p, len(solver.PAIRS)))
+    curve_err = float((curves["cuda"] - curves["cpu"]).abs().max() / curves["cpu"].abs().max())
+    if not (abs(ests["cuda"] - SWEEP_GT) <= 2.0 and ests["cuda"] == ests["cpu"]
+            and curve_err <= SWEEP_TOL):
+        fail(f"elevation sweep on synthetic slates at {SWEEP_GT}: card {ests['cuda']}, CPU "
+             f"{ests['cpu']}, error curves {curve_err} apart (<= {SWEEP_TOL})")
+
+    # (d) the estimator as PipelineConfig builds it (bf16 matcher)
+    ecfg = PipelineConfig().elevation
+    m16 = loftr.LoFTRMatcher(weights, dtype=ecfg.dtype, device="cuda")
+    est = solver.ElevationEstimator(m16, focal=ecfg.focal, image_size=ecfg.image_size)
+    c16, _ = m16.extract(gray[:2].cuda())
+    _, _, conf16 = m16.coarse_confidence(c16[:1], c16[1:])
+    rel16 = rel_l2(conf16, out["cuda"][2])
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        elev = est.estimate(views)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = [int(v.sum()) for _, _, _, v in est.match_views(views)]
+    log(
+        f"phase elevation: two-stage sweep on synthetic slates (K=1024, 64 valid, 0.3 px "
+        f"noise) at {SWEEP_GT}: card {ests['cuda']}, CPU {ests['cpu']}, error curves (30-149 "
+        f"by 1) max rel {curve_err:.3e} (<= {SWEEP_TOL}) | ElevationEstimator.estimate, bf16 "
+        f"matcher at threshold {m16.threshold}: cold {secs[0]:.4f} s, warm {secs[1]:.4f} s, "
+        f"valid per pair {counts}, estimate {elev} | bf16 vs f32 confidence relative L2 "
+        f"{rel16:.3e} | {smi}"
+    )
+    del matchers, out
+    return weights, est
+
+
+def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
+    """One2345Pipeline(PipelineConfig()).run at full width on one card, with
+    the seeded weights of phases 6 to 8, cold and warm: seconds per span,
+    the elevation and the ring it picked, K1 launches, the mesh, the
+    artifacts (read back), peak memory.  Returns the warm run's K1
+    launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.core.config import PipelineConfig
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+    from one2345_tpu_torch.pipeline.runner import One2345Pipeline
+    from one2345_tpu_torch.utils.png import read_png
+
+    t0 = time.perf_counter()
+    pipe = One2345Pipeline(
+        PipelineConfig(), params={"zero123": zero123_params, "recon": recon_p, "loftr": loftr_w},
+        use_sam=False, device="cuda",
+    )
+    _ = pipe.zero123, pipe.recon, pipe.elevation_estimator
+    log(f"phase pipeline: One2345Pipeline(PipelineConfig()) built with seeded weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    image = input_image()
+    expected = 16 * (76 + 49 + 76 + 49)
+    runs = {}
+    try:
+        for run in ("cold", "warm"):
+            out_dir = os.path.join(PIPELINE_OUT, run)
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launch_count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pipe.run(image, out_dir=out_dir, skip_preprocess=True, seed=0,
+                           output_format=".obj")
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = flash_attention.launch_count
+            if launches != expected:
+                fail(f"pipeline {run}: flash_attention launched {launches} times, expected "
+                     f"{expected}")
+            if tuple(res.timings) != PIPELINE_SPANS:
+                fail(f"pipeline {run}: spans {tuple(res.timings)}, expected {PIPELINE_SPANS}")
+            for name, imgs in (("stage1", res.stage1_images), ("stage2", res.stage2_images)):
+                if not torch.isfinite(imgs).all() or imgs.min() < 0 or imgs.max() > 1:
+                    fail(f"pipeline {run}: {name} images not finite in [0, 1]")
+            check_mesh(f"pipeline {run}", {"vertices": res.vertices, "faces": res.faces,
+                                           "colors": res.colors})
+            polar = 90.0 - res.elevation
+            sel = list(range(8)) if polar <= 75 else [0, 1, 2, 3, 8, 9, 10, 11]
+            want = {f"stage1_8/{i}.png" for i in sel}
+            want |= {f"stage2_8/{i}_{j}.png" for i in sel for j in range(4)}
+            want |= {"pose.json", "mesh.ply", "mesh.obj"}
+            have = {
+                os.path.relpath(os.path.join(d, f), out_dir)
+                for d, _, files in os.walk(out_dir) for f in files
+            }
+            if have != want or res.mesh_path != os.path.join(out_dir, "mesh.obj"):
+                fail(f"pipeline {run}: artifacts {sorted(have ^ want)} differ from the expected "
+                     f"{len(want)}, mesh path {res.mesh_path}")
+            k = 5
+            png = read_png(os.path.join(out_dir, "stage1_8", f"{sel[k]}.png"))
+            ref = (res.stage1_images[k].cpu().numpy() * 255).astype(np.uint8)
+            if not np.array_equal(png, ref):
+                fail(f"pipeline {run}: stage1_8/{sel[k]}.png does not read back as its image")
+            runs[run] = res
+            log(
+                f"phase pipeline ({run}): " + ", ".join(
+                    f"{k} {v:.4f} s" for k, v in res.timings.items())
+                + f", total {total:.4f} s | elevation {res.elevation} (polar {polar}), second "
+                f"ring {sel[4:]} | flash_attention launches {launches} (expected {expected}) | "
+                f"{len(res.vertices)} vertices, {len(res.faces)} faces | {len(have)} artifacts "
+                f"({len(sel)} stage-1 PNGs, {4 * len(sel)} stage-2 PNGs, pose.json, mesh.ply, "
+                f"mesh.obj), stage1_8/{sel[k]}.png read back equal | peak mem "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}"
+            )
+    finally:
+        shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
+    cold, warm = runs["cold"], runs["warm"]
+    if warm.elevation != cold.elevation:
+        fail(f"pipeline: warm elevation {warm.elevation}, cold {cold.elevation}")
+    rerun = float((warm.stage2_images - cold.stage2_images).abs().max())
+    log(
+        f"phase pipeline: warm vs cold: the same elevation {warm.elevation}, stage-2 images max "
+        f"abs {rerun:.3e}, {len(warm.vertices)} vs {len(cold.vertices)} vertices; output "
+        f"directory removed"
+    )
+    return launches
+
+
 def recon_params(seed: int) -> dict:
     """State dicts of a full-width ReconStage: ``seeded_state_dict`` weights
     for the feature, cost-volume and blending nets; the SDF MLP keeps the
@@ -819,7 +1114,8 @@ def check_mesh(name: str, mesh):
 
 def phase_recon(s2, smi):
     """The reconstruction stage at full width on the sampled views: returns
-    (bf16 stage, images, cameras) for the profiled run of phase 9."""
+    (bf16 stage, images, cameras) for the profiled run of phase 11, and the
+    stage's weights for the pipeline phase."""
     import numpy as np
     import torch
 
@@ -909,7 +1205,7 @@ def phase_recon(s2, smi):
         f"f32 card {times['cuda']:.2f} s, CPU {times['cpu']:.2f} s"
     )
     del f32, vols, card, ref
-    return stage, images, cams
+    return stage, images, cams, params
 
 
 def kernel_family(name: str) -> str:
@@ -929,35 +1225,56 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
+def busy_ms(events) -> float:
+    """Milliseconds in which at least one of the device ``events`` ran."""
+    busy, end = 0.0, -math.inf
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def by_family(ms_by_family: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in sorted(ms_by_family.items(), key=lambda kv: -kv[1]))
+
+
+def profiled(fn, span_names=()):
+    """One call of ``fn`` under torch.profiler: (wall ms, the device events,
+    {span: its time range}) where spans are ``Timer``'s record_function
+    ranges on the device timeline, not counted as device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = {e.name: e.time_range for e in device if e.name in span_names}
+    events = [e for e in device if e.name not in span_names]
+    if not events:
+        fail("profiler: no device events in a profiled call")
+    return wall_ms, events, ranges
+
+
 def phase_recon_profile(stage, images, cams, smi):
     """One warm reconstruct under torch.profiler: device ms by kernel
     family, in all and per span, the device's busy share of the wall time,
     host ms of marching tets.  The spans' own ranges on the device timeline
     (``Timer``'s record_function annotations) place each kernel in its
     span and are not counted as device work."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from one2345_tpu_torch.core.profiling import Timer
 
     timer = Timer(device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        stage.reconstruct(images, cams, resolution=RECON_RESOLUTION, timer=timer)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ranges = {e.name: e.time_range for e in device if e.name in RECON_SPANS}
-    events = [e for e in device if e.name not in RECON_SPANS]
-    if not events:
-        fail("profiler: no device events in the profiled reconstruct")
-    busy, end = 0.0, -math.inf
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
+    wall_ms, events, ranges = profiled(
+        lambda: stage.reconstruct(images, cams, resolution=RECON_RESOLUTION, timer=timer),
+        RECON_SPANS,
+    )
+    busy = busy_ms(events)
     families: dict = {}
     per_span: dict = {}
     top: dict = {}
@@ -971,13 +1288,9 @@ def phase_recon_profile(stage, images, cams, smi):
         top[e.name] = top.get(e.name, 0.0) + ms
     device_ms = sum(families.values())
     spans = timer.report()
-
-    def by_family(d):
-        return ", ".join(f"{k} {v:.2f}" for k, v in sorted(d.items(), key=lambda kv: -kv[1]))
-
     log(
         f"phase recon profile: wall {wall_ms:.1f} ms, device {device_ms:.1f} ms in "
-        f"{len(events)} device events, busy {busy / 1e3:.1f} ms = {busy / 1e3 / wall_ms:.3f} of "
+        f"{len(events)} device events, busy {busy:.1f} ms = {busy / wall_ms:.3f} of "
         f"the wall | by family (ms): {by_family(families)} | marching tets on the host "
         f"{spans['marching_tets'] * 1e3:.1f} ms | {smi}"
     )
@@ -990,6 +1303,28 @@ def phase_recon_profile(stage, images, cams, smi):
                 f"{sum(fams.values()):.2f} ms ({by_family(fams) or 'no device work'})"
             )
     log("phase recon profile: top kernels (device ms): " + "; ".join(
+        f"{k[:100]} {v:.2f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:12]
+    ))
+
+
+def phase_elevation_profile(est, views, smi):
+    """One warm ElevationEstimator.estimate (bf16 matcher) under
+    torch.profiler: device ms by kernel family, busy share, top kernels."""
+    wall_ms, events, _ = profiled(lambda: est.estimate(views))
+    families: dict = {}
+    top: dict = {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        fam = kernel_family(e.name)
+        families[fam] = families.get(fam, 0.0) + ms
+        top[e.name] = top.get(e.name, 0.0) + ms
+    busy = busy_ms(events)
+    log(
+        f"phase elevation profile: estimate wall {wall_ms:.1f} ms, device "
+        f"{sum(families.values()):.2f} ms in {len(events)} device events, busy {busy:.1f} ms = "
+        f"{busy / wall_ms:.3f} of the wall | by family (ms): {by_family(families)} | {smi}"
+    )
+    log("phase elevation profile: top kernels (device ms): " + "; ".join(
         f"{k[:100]} {v:.2f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:12]
     ))
 
@@ -1134,12 +1469,16 @@ def main() -> int:
     unet_weights = phase_unet()
     phase_grad()
     stage, params = build_stage(unet_weights)
-    launches, s2 = phase_sampling(stage, smi)
-    recon_stage, recon_images, recon_cams = phase_recon(s2, smi)
+    _, s2 = phase_sampling(stage, smi)
+    loftr_w, estimator = phase_elevation(s2[0], smi)
+    recon_stage, recon_images, recon_cams, recon_p = phase_recon(s2, smi)
+    views = s2[0].clone()
     del s2
+    launches = phase_pipeline(params, recon_p, loftr_w, smi)
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
     phase_device_times(rows, bwd_rows)
     phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
+    phase_elevation_profile(estimator, views, smi)
 
     def json_bound_by(by: str) -> str:
         # the line names two kinds of bound: the exp unit's rate is a peak

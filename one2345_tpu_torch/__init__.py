@@ -4,22 +4,26 @@ The JAX package ``one2345_tpu`` is the reference; this package mirrors its
 module paths so that every module has a counterpart at the same sub-path.
 It imports torch, numpy and einops only, never JAX or ``one2345_tpu``.
 
-Ported so far: the multi-view generation half of the image -> mesh path
-(Zero123-XL stage-1 / stage-2 sampling), with the UNet's self-attention on
-hand-written CUDA flash-attention kernels (``csrc/``); the Zero123 finetune
-step; the lod0 reconstruction stage (32 views -> colored mesh).
+Ported so far: the image -> mesh path from a recentred 256^2 image
+(``pipeline.runner.One2345Pipeline.run``): Zero123-XL stage-1 / stage-2
+sampling, with the UNet's self-attention on hand-written CUDA
+flash-attention kernels (``csrc/``); the LoFTR elevation estimate; the lod0
+reconstruction stage (32 views -> colored mesh); and the Zero123 finetune
+step.
 
 Subpackages
 -----------
 core         config dataclasses, device, timing
 diffusion    Zero123-XL latent diffusion (UNet, VAE, CLIP, DDIM)
+elevation    LoFTR matching and the elevation pose sweep
 geometry     camera rig, projection, bilinear / trilinear sampling
 native       the host C++ marching tetrahedra, built with g++ at first use
 nn           building blocks of the reconstruction networks
 ops          hand-written CUDA kernels and their plain PyTorch versions
+pipeline     One2345Pipeline: the image -> mesh runner and its exports
 recon        reconstruction: FPN, cost volume, SDF MLP, blending net, mesh
 training     the Zero123 finetune step
-utils        weight conversion from the JAX parameter trees
+utils        weight conversion from the JAX parameter trees, a PNG writer
 """
 
 __version__ = "0.1.0"

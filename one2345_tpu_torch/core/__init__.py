@@ -1,7 +1,10 @@
 from one2345_tpu_torch.core.config import (
     CLIPVisionConfig,
     DiffusionConfig,
+    ElevationConfig,
+    PipelineConfig,
     ReconConfig,
+    SamConfig,
     UNetConfig,
     VAEConfig,
 )
@@ -10,7 +13,10 @@ from one2345_tpu_torch.core.profiling import Timer
 __all__ = [
     "CLIPVisionConfig",
     "DiffusionConfig",
+    "ElevationConfig",
+    "PipelineConfig",
     "ReconConfig",
+    "SamConfig",
     "UNetConfig",
     "VAEConfig",
     "Timer",

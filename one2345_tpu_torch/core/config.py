@@ -1,9 +1,9 @@
-"""Dataclass configs of the diffusion and reconstruction stages.
+"""Dataclass configs of the pipeline and its stages.
 
-A copy of the diffusion dataclasses and of ``ReconConfig`` of
-``one2345_tpu/core/config.py`` (the port imports nothing of the JAX
-package).  Field names and defaults are the same, so a config serialized by
-either package loads in the other.
+A copy of the diffusion dataclasses, ``ReconConfig``, ``SamConfig``,
+``ElevationConfig`` and ``PipelineConfig`` of ``one2345_tpu/core/config.py``
+(the port imports nothing of the JAX package).  Field names and defaults are
+the same, so a config serialized by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -197,3 +197,65 @@ class ReconConfig(_ConfigBase):
     # f32 regardless.  Defaults f32 so every library construction keeps
     # reference numerics; the inference pipeline opts into bf16.
     dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class SamConfig(_ConfigBase):
+    """SAM ViT-H (utils/sam_utils.py:9-16; weights sam_vit_h_4b8939.pth).
+    Carried by ``PipelineConfig``; the SAM stage is not ported yet."""
+
+    image_size: int = 1024
+    patch_size: int = 16
+    encoder_dim: int = 1280
+    encoder_depth: int = 32
+    encoder_heads: int = 16
+    global_attn_indexes: Sequence[int] = (7, 15, 23, 31)
+    window_size: int = 14
+    prompt_embed_dim: int = 256
+    dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class ElevationConfig(_ConfigBase):
+    """LoFTR elevation estimation (elevation_estimate/utils/elev_est_api.py).
+
+    As in the JAX package, the matcher and the solver read only ``focal``,
+    ``image_size``, ``default_elevation`` and ``dtype``: the match size
+    (480), the sweep grids ([30, 150) by 10, then ``e1 - 10 + arange(20)``)
+    and the 0.2 match threshold are fixed in ``elevation/``.  The other
+    fields are kept so that configs load in both packages."""
+
+    match_size: int = 480
+    focal: float = 280.0
+    image_size: int = 256
+    coarse_min: int = 30
+    coarse_max: int = 150
+    coarse_step: int = 10
+    fine_span: int = 15
+    match_threshold: float = 0.2
+    default_elevation: float = 90.0  # fallback (run.py:32-36)
+    # backbone/transformer compute dtype; the matching heads (dual-softmax
+    # confidences, fine expected-coordinate heatmap) always run f32.  Bare
+    # ElevationConfig stays f32; PipelineConfig opts inference into bf16.
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class PipelineConfig(_ConfigBase):
+    """End-to-end image->mesh orchestration (run.py:99-119 semantics)."""
+
+    diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
+    # inference runs the recon conv path in bf16; bare ReconConfig() is f32
+    recon: ReconConfig = field(
+        default_factory=lambda: ReconConfig(dtype="bfloat16")
+    )
+    sam: SamConfig = field(default_factory=SamConfig)
+    # inference runs the LoFTR backbone/transformer in bf16; bare
+    # ElevationConfig() is f32
+    elevation: ElevationConfig = field(
+        default_factory=lambda: ElevationConfig(dtype="bfloat16")
+    )
+    half_precision: bool = True
+    output_format: str = ".ply"
+    mesh_resolution: int = 256
+    seed: int = 0

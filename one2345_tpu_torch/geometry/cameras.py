@@ -1,8 +1,8 @@
 """Camera rig synthesis and normalization for the 1 + 32-view reconstruction.
 
-A copy of ``build_recon_cameras`` of ``one2345_tpu/geometry/cameras.py``
-and what it calls (numpy only; the port imports nothing of the JAX
-package).  It follows the reference's pose pipeline:
+A copy of ``build_recon_cameras`` and ``pose_dict`` / ``write_pose_json``
+of ``one2345_tpu/geometry/cameras.py`` and what they call (numpy only; the
+port imports nothing of the JAX package).  It follows the reference's pose pipeline:
 
 - spherical look-at pose synthesis        (utils/utils.py:80-128)
 - the 8 first-stage + 32 second-stage rig (utils/utils.py:106-128)
@@ -17,6 +17,9 @@ reconstruction stage converts them to OpenCV convention with BLENDER2OPENCV
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -131,6 +134,24 @@ def rig_poses(init_elev_deg: float) -> tuple[list[str], np.ndarray]:
 # Scene normalization (scale-mat) — analytic replacement of the reference's
 # cv2.decomposeProjectionMatrix round-trip (One2345_eval_new_data.py:242-274).
 # ---------------------------------------------------------------------------
+
+
+def pose_dict(init_elev_deg: float) -> dict:
+    """pose.json-compatible payload (utils/utils.py:130-145)."""
+    img_ids, poses = rig_poses(init_elev_deg)
+    return {
+        "intrinsics": intrinsic_matrix().tolist(),
+        "near_far": list(NEAR_FAR),
+        "c2ws": {img_id: poses[i].tolist() for i, img_id in enumerate(img_ids)},
+    }
+
+
+def write_pose_json(shape_dir: str, init_elev_deg: float) -> str:
+    """Write ``pose_dict`` to ``shape_dir/pose.json``; returns the path."""
+    path = os.path.join(shape_dir, "pose.json")
+    with open(path, "w") as f:
+        json.dump(pose_dict(init_elev_deg), f, indent=4)
+    return path
 
 
 def view_frustum_points(

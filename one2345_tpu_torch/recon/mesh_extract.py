@@ -10,7 +10,9 @@ Counterpart of ``one2345_tpu/recon/mesh_extract.py``:
   version the tests hold the C++ one against (its vertex order differs);
 - ``grid_to_world``, ``apply_mesh_transforms``: grid index -> normalized
   space -> world;
-- ``save_ply``: binary little-endian PLY with uint8 vertex colors.
+- ``convert_mesh_axes``: the axis flips of the reference's obj/glb export;
+- ``save_ply`` / ``load_ply``: binary little-endian PLY with uint8 vertex
+  colors, and a reader of what ``save_ply`` writes.
 """
 
 from __future__ import annotations
@@ -209,6 +211,17 @@ def apply_mesh_transforms(
     return v
 
 
+def convert_mesh_axes(verts: np.ndarray, faces: np.ndarray):
+    """The reference's obj/glb export flips (utils/utils.py:31-47):
+    rotate pi/2 about x, pi about z, then mirror x (with face reversal)."""
+    rx = np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32)
+    rz = np.array([[-1, 0, 0], [0, -1, 0], [0, 0, 1]], np.float32)
+    v = verts @ (rz @ rx).T
+    v[:, 0] = -v[:, 0]
+    f = faces[:, ::-1].copy()
+    return v, f
+
+
 def save_ply(
     path: str,
     verts: np.ndarray,
@@ -243,3 +256,24 @@ def save_ply(
         frec["n"] = 3
         frec["idx"] = faces.astype("<i4")
         fh.write(frec.tobytes())
+
+
+def load_ply(path: str):
+    """Reader of the PLYs ``save_ply`` writes: (vertices [N, 3] f32, faces
+    [M, 3] int32, colors [N, 3] uint8 or None)."""
+    with open(path, "rb") as fh:
+        header = []
+        while True:
+            line = fh.readline().decode().strip()
+            header.append(line)
+            if line == "end_header":
+                break
+        n_v = int(next(l for l in header if l.startswith("element vertex")).split()[-1])
+        n_f = int(next(l for l in header if l.startswith("element face")).split()[-1])
+        has_c = any("uchar red" in l for l in header)
+        vdt = [("xyz", "<f4", 3)] + ([("rgb", "u1", 3)] if has_c else [])
+        vrec = np.frombuffer(fh.read(n_v * (12 + (3 if has_c else 0))), dtype=vdt)
+        frec = np.frombuffer(fh.read(n_f * 13), dtype=[("n", "u1"), ("idx", "<i4", 3)])
+    verts = vrec["xyz"].copy()
+    colors = vrec["rgb"].copy() if has_c else None
+    return verts, frec["idx"].copy(), colors

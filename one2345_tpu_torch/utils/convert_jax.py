@@ -6,7 +6,7 @@
 module, which the port's modules load with ``strict=True``;
 ``trainable_from_jax`` does the same for the trainer's trainable tree, and
 ``recon_from_jax`` for ``ReconStage.params`` ('fusion', 'sdf', 'render',
-'variance').
+'variance'), and ``loftr_from_jax`` for ``LoFTRMatcher.params``.
 
 The port names its submodules after the flax scopes, so the mapping is
 mechanical:
@@ -100,3 +100,10 @@ def recon_from_jax(params: Mapping) -> dict:
     ``recon.pipeline.ReconStage`` loads: {'fusion', 'sdf', 'render',
     'variance'}."""
     return {name: flax_to_state_dict(params[name]) for name in ("fusion", "sdf", "render", "variance")}
+
+
+def loftr_from_jax(params: Mapping) -> dict:
+    """JAX ``LoFTRMatcher.params`` (the ``LoFTRModules`` variables: 'params'
+    and 'batch_stats') -> the state dict ``elevation.loftr.LoFTRMatcher``
+    loads."""
+    return flax_to_state_dict(params)

@@ -3,6 +3,7 @@ nothing of one2345_tpu, and no PIL or cv2 (the machine with the card has
 neither), and its entry points run on the card unless the caller asks for
 the CPU."""
 
+import ast
 import json
 import os
 import subprocess
@@ -39,6 +40,11 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.training.data",
         "one2345_tpu_torch.training.zero123_trainer",
         "one2345_tpu_torch.core.device",
+        "one2345_tpu_torch.elevation.loftr",
+        "one2345_tpu_torch.elevation.solver",
+        "one2345_tpu_torch.pipeline.runner",
+        "one2345_tpu_torch.recon.gltf",
+        "one2345_tpu_torch.utils.png",
         "one2345_tpu_torch.nn.layers",
         "one2345_tpu_torch.geometry.cameras",
         "one2345_tpu_torch.geometry.projection",
@@ -101,3 +107,29 @@ def test_marching_tets_source_is_the_jax_package_s():
     with open(copy, "rb") as a, open(os.path.join(REPO, "one2345_tpu", "native",
                                                    "marching_tets.cpp"), "rb") as b:
         assert a.read() == b.read()
+
+
+def test_pipeline_and_elevation_default_to_the_card():
+    from one2345_tpu_torch.elevation.loftr import LoFTRMatcher
+    from one2345_tpu_torch.elevation.solver import ElevationEstimator
+    from one2345_tpu_torch.pipeline.runner import One2345Pipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    for entry in (One2345Pipeline, LoFTRMatcher, ElevationEstimator):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+
+
+def test_card_tests_import_no_jax():
+    """tests/test_torch_cuda.py runs on the card's machine, which has no
+    JAX: it imports torch, pytest and the port only."""
+    with open(os.path.join(REPO, "tests", "test_torch_cuda.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert roots == {"pytest", "torch", "one2345_tpu_torch"}
