@@ -52,22 +52,41 @@ Phases, one line each; any failure exits non-zero and prints no result:
    estimated elevation and the second ring it picked, 4000 K1 launches, the
    mesh checks of phase 8, every artifact (8 + 32 PNGs, pose.json,
    mesh.ply, mesh.obj) written (one PNG read back) and then removed;
-10. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
+10. preprocess: SAM ViT-H (width 1280, 16 heads, 1024^2) with seeded
+   weights: at depth 2 (block 0 windowed, block 1 global) the card's f32
+   stage against the CPU's (the embedding, the mask of one box prompt); the
+   full SamConfig() in bf16 against f32 on the card; set_image cold, warm
+   and memoised, predict_box, seed_bbox and the branch it took; thumbnail
+   and recenter_rescale of a 2300x1700 image, RGBA and RGB (the RGB one
+   box-reduced first), card against CPU bit for bit; check_safety with the
+   f32 CLIP tower and seeded concept embeddings, thresholds just below and
+   above the measured similarity, the same flags on card and CPU;
+11. cli: pipeline.cli.main on a seeded 640x480 RGBA PNG written with the
+   port's encoder (adaptive row filters: Sub, Up, Average and Paeth rows
+   checked present) and read_png's host time on it and on a 2048x2048 RGBA
+   photo (every row Paeth, and filtered adaptively); SAM on and the safety
+   gate loaded (seeded embeddings that do not flag): run(skip_preprocess=False)
+   at full width with the
+   weights of phases 6 to 10, seconds per span, 4000 K1 launches, the mesh
+   checks, every artifact and the input read back with the port's readers,
+   then removed;
+12. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
    remat, f32 weights, bf16 autocast): one cold step and five warm ones,
    each timed, its launches counted, and the first one's gradients, params
    and EMA checked;
-11. device times: each kernel's device time per launch (torch.profiler) at
+13. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 to 10, which a profiled run can slow on the
-   host; then one warm reconstruct and one warm elevation estimate under
-   torch.profiler: device ms by kernel family, the device's busy share,
-   host ms of marching tets.
+   after the timed phases 6 to 12, which a profiled run can slow on the
+   host; then one warm reconstruct, one warm elevation estimate and one
+   warm bf16 SAM encode under torch.profiler: device ms by kernel family
+   (for SAM also the global blocks' share), the device's busy share, host
+   ms of marching tets.
 
-Then the kernels' JSON line (K1's launches are those of the warm pipeline
-run), the nvidia-smi line, and the result line.  Needs one card; writes
-nothing outside its checkout (the pipeline's artifacts go to _smoke_out/,
-removed at the end of phase 9).
+Then the kernels' JSON line (K1's launches are those of the CLI run, the
+main path from a raw image), the nvidia-smi line, and the result line.
+Needs one card; writes nothing outside its checkout (the pipeline's and
+the CLI's files go to _smoke_out/, removed at the end of phases 9 and 11).
 """
 
 from __future__ import annotations
@@ -119,6 +138,11 @@ LOFTR_MIN_VALID = 64  # the check's threshold is the first of LOFTR_THRESHOLDS t
 LOFTR_THRESHOLDS = (0.05, 0.01, 0.001, 0.0)
 SWEEP_GT = 73.0  # the synthetic slates' elevation (tests/test_elevation_solver.py)
 SWEEP_TOL = 1e-4  # relative, the card's error curve against the CPU's
+# the preprocess phase: SAM ViT-H at depth 2, card f32 against CPU f32, and
+# the full encoder in bf16 against f32 on the card
+SAM_EMBED_TOL = 1e-4  # relative L2 of the [1, 64, 64, 256] embedding
+SAM_MASK_AGREEMENT = 0.999  # pixels of one box prompt's mask
+SAM_BF16_TOL = 5e-2  # relative L2, bf16 embedding against the f32 one
 PIPELINE_SPANS = ("preprocess", "stage1", "stage2_view0", "elevation", "stage2", "reconstruct")
 # the runner's outputs go here, inside the checkout (gitignored), and are
 # removed at the end of the phase
@@ -1060,6 +1084,421 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
     return launches
 
 
+def sam_input(h: int, w: int, seed: int, rgba: bool):
+    """A seeded object (a shaded ellipse with texture) on white, or on a
+    transparent ground for RGBA, as uint8."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    obj = ((yy - 0.52 * h) / (0.3 * h)) ** 2 + ((xx - 0.47 * w) / (0.27 * w)) ** 2 < 1
+    img = np.full((h, w, 4), 255, np.uint8)
+    shade = np.stack([yy / h, xx / w, 1.0 - yy / h], axis=-1) * 150 + 40
+    img[obj, :3] = (shade[obj] + rng.normal(0, 12, (int(obj.sum()), 3))).clip(0, 255)
+    if rgba:
+        img[..., 3] = np.where(obj, 255, 0)
+        return img
+    return np.ascontiguousarray(img[..., :3])
+
+
+def sam_weights(seed: int) -> dict:
+    """Seeded non-zero f32 weights of the full SamModules (ViT-H)."""
+    from one2345_tpu_torch.core.config import SamConfig
+    from one2345_tpu_torch.segmentation.sam import SamStage
+
+    return seeded_state_dict(SamStage(SamConfig(), device="meta").modules, seed)
+
+
+class RecordingChecker:
+    """A SafetyChecker that keeps the embeddings it is asked about."""
+
+    def __init__(self, checker):
+        self.checker, self.seen = checker, []
+
+    @property
+    def has_weights(self):
+        return self.checker.has_weights
+
+    def check(self, emb):
+        self.seen.append(emb)
+        return self.checker.check(emb)
+
+
+def phase_preprocess(zero123_params, smi):
+    """Preprocessing at full width with seeded weights: SAM ViT-H at depth 2
+    (block 0 windowed, block 1 global) card f32 against CPU f32, the full
+    encoder in bf16 against f32 on the card, set_image cold / warm,
+    predict_box, seed_bbox; the PIL / OpenCV resizes card against CPU; the
+    safety gate's flags card against CPU.  Returns the bf16 stage, its f32
+    weights and the image, for the CLI phase and the profile."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.core.config import PipelineConfig, SamConfig
+    from one2345_tpu_torch.diffusion.clip import CLIPVisionTower
+    from one2345_tpu_torch.pipeline.runner import One2345Pipeline
+    from one2345_tpu_torch.segmentation.safety import SafetyChecker
+    from one2345_tpu_torch.segmentation.sam import SamStage
+    from one2345_tpu_torch.utils import image as img_utils
+    weights = sam_weights(seed=41)
+    rgb = sam_input(384, 512, seed=42, rgba=False)  # a 512-thumbnail frame
+    box = (100, 60, 420, 330)
+
+    # depth 2 at full width: card f32 (TF32 off) against CPU f32
+    cfg2 = SamConfig(encoder_depth=2, global_attn_indexes=(1,), dtype="float32")
+    w2 = seeded_state_dict(SamStage(cfg2, device="meta").modules, seed=47)
+    stages, caches, masks, secs = {}, {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        stages[dev] = SamStage(cfg2, params=w2, device=dev)
+        t0 = time.perf_counter()
+        caches[dev] = stages[dev].set_image(rgb)
+        masks[dev] = stages[dev].predict_box(caches[dev], box)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+    emb_rel = rel_l2(caches["cuda"]["embedding"], caches["cpu"]["embedding"])
+    agree = float((masks["cuda"] == masks["cpu"]).mean())
+    if not emb_rel <= SAM_EMBED_TOL or not agree >= SAM_MASK_AGREEMENT:
+        fail(f"preprocess: SAM depth 2 card vs CPU: embedding relative L2 {emb_rel:.3e} (<= "
+             f"{SAM_EMBED_TOL}), mask agreement {agree:.6f} (>= {SAM_MASK_AGREEMENT})")
+    log(
+        f"phase preprocess: SAM ViT-H width 1280, 16 heads, depth 2 (block 0 windowed, block 1 "
+        f"global) at 1024^2, seeded, f32: card vs CPU embedding [1, 64, 64, 256] relative L2 "
+        f"{emb_rel:.3e} (<= {SAM_EMBED_TOL}), box-prompt mask ({masks['cpu'].mean():.4f} of "
+        f"{rgb.shape[1]}x{rgb.shape[0]}) agreement {agree:.6f} (>= {SAM_MASK_AGREEMENT}); "
+        f"set_image + predict_box cold: card {secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s"
+    )
+    del stages, caches
+
+    # the full encoder: bf16 against f32, both on the card
+    t0 = time.perf_counter()
+    f32 = SamStage(SamConfig(dtype="float32"), params=weights, device="cuda")
+    bf16 = SamStage(SamConfig(), params=weights, device="cuda")
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    e32 = f32.set_image(rgb)["embedding"]
+    del f32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for run in range(2):
+        bf16._memo = None  # a cold and a warm encode of the same image
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = bf16.set_image(rgb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    memo = bf16.set_image(rgb)
+    memo_s = time.perf_counter() - t0
+    if memo is not cache:
+        fail("preprocess: set_image did not return the memoised encoding")
+    e16 = cache["embedding"]
+    bf_rel = rel_l2(e16, e32)
+    if not torch.isfinite(e16).all() or not bf_rel <= SAM_BF16_TOL:
+        fail(f"preprocess: bf16 SAM embedding vs f32 relative L2 {bf_rel:.3e} (<= {SAM_BF16_TOL})")
+    t0 = time.perf_counter()
+    mask = bf16.predict_box(cache, box)
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seed = bf16.seed_bbox(cache)
+    seed_s = time.perf_counter() - t0
+    branch = f"SAM's box {seed}" if seed is not None else (
+        f"None -> estimate_bbox {img_utils.estimate_bbox(rgb)}")
+    log(
+        f"phase preprocess: full SamConfig() (32 blocks, global 7/15/23/31, bf16) built in "
+        f"{built:.1f} s; vs the f32 encoder on the card: relative L2 {bf_rel:.3e} (<= "
+        f"{SAM_BF16_TOL}); set_image cold {times[0]:.4f} s, warm {times[1]:.4f} s, memoised "
+        f"{memo_s * 1e3:.3f} ms; predict_box warm {predict_s:.4f} s (mask {mask.mean():.4f} of "
+        f"the frame); seed_bbox {seed_s:.4f} s: {branch}; peak mem of the encodes {peak:.2f} GiB "
+        f"| {smi}"
+    )
+
+    # the resizes of thumbnail and recenter_rescale, card against CPU
+    lines = []
+    for rgba in (True, False):
+        big = sam_input(1700, 2300, seed=43, rgba=rgba)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            thumb = img_utils.thumbnail(big, 512, device=dev)
+            t1 = time.perf_counter()
+            out = img_utils.recenter_rescale(thumb if rgba else np.concatenate(
+                [thumb, np.full(thumb.shape[:2] + (1,), 255, np.uint8)], -1), device=dev)
+            outs[dev] = (thumb, out, t1 - t0, time.perf_counter() - t1)
+        (ta, oa, *_), (tb, ob, *_) = outs["cpu"], outs["cuda"]
+        if not np.array_equal(ta, tb) or not np.array_equal(oa, ob):
+            fail(f"preprocess: thumbnail / recenter_rescale of 2300x1700 "
+                 f"{'RGBA' if rgba else 'RGB'} differ between card and CPU")
+        lines.append(
+            f"{'RGBA' if rgba else 'RGB (box-reduced by 2 first)'} -> {tb.shape[1]}x{tb.shape[0]} "
+            f"thumbnail card {outs['cuda'][2]:.4f} s / CPU {outs['cpu'][2]:.4f} s, recenter "
+            f"card {outs['cuda'][3]:.4f} s / CPU {outs['cpu'][3]:.4f} s")
+    log("phase preprocess: 2300x1700 " + "; ".join(lines) + ": card equal to CPU, bit for bit")
+
+    # the safety gate: f32 CLIP ViT-L/14 on both, thresholds around the
+    # measured similarity (x 1.2 in the checker)
+    concept = np.random.default_rng(44).standard_normal((2, 768)).astype(np.float32)
+    flags, sims = {}, {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            tower = CLIPVisionTower()
+        tower.load_state_dict(zero123_params["clip"], strict=True)
+        pipe = One2345Pipeline(PipelineConfig(), device=dev)
+        pipe._zero123 = types.SimpleNamespace(clip=tower.eval())
+        probe = RecordingChecker(SafetyChecker(concept, np.zeros(2, np.float32)))
+        pipe._safety = probe
+        pipe.check_safety(rgb)
+        emb = probe.seen[0][0]
+        sims[dev] = (concept @ emb) / (np.linalg.norm(concept, axis=1) * np.linalg.norm(emb))
+        # concept 0's threshold 0.02 below the card's similarity, concept
+        # 1's 0.02 above (the checker scales thresholds by 1.2)
+        thresholds = (sims["cuda"] + np.array([-0.02, 0.02])) / 1.2
+        flags[dev] = []
+        for k in range(2):
+            t = np.full(2, 10.0, np.float32)
+            t[k] = thresholds[k]
+            pipe._safety = SafetyChecker(concept, t)
+            flags[dev].append(pipe.check_safety(rgb))
+        del tower, pipe
+    if flags["cuda"] != flags["cpu"] or flags["cuda"] != [True, False]:
+        fail(f"preprocess: safety flags card {flags['cuda']}, CPU {flags['cpu']}, expected "
+             f"[True, False]")
+    log(
+        f"phase preprocess: check_safety (f32 CLIP ViT-L/14, PIL-bicubic 224 input), cosine "
+        f"similarities card {np.round(sims['cuda'], 6).tolist()}, CPU "
+        f"{np.round(sims['cpu'], 6).tolist()}; thresholds 0.02 below / above concept 0 and 1: "
+        f"flags card {flags['cuda']} = CPU {flags['cpu']}"
+    )
+
+    # One2345Pipeline.preprocess warm, step by step, on a 640x480 RGBA
+    # input: the bf16 SAM stage above, the bf16 CLIP tower, a gate that
+    # does not flag
+    from one2345_tpu_torch.diffusion.unet import cast_compute
+
+    with torch.device("cuda"):
+        tower = CLIPVisionTower()
+    tower.load_state_dict(zero123_params["clip"], strict=True)
+    pipe = One2345Pipeline(PipelineConfig(), device="cuda")
+    pipe._zero123 = types.SimpleNamespace(clip=cast_compute(tower.eval(), torch.bfloat16))
+    pipe._safety = SafetyChecker(concept, np.full(2, 0.9, np.float32))
+    pipe._sam = bf16
+    raw = sam_input(480, 640, seed=45, rgba=True)
+    pipe.preprocess(raw)  # warm
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    bf16._memo = None
+    thumb = step("thumbnail", lambda: img_utils.thumbnail(raw, 512, device="cuda"))
+    rgb2 = step("composite", lambda: (img_utils.composite_white(
+        thumb.astype(np.float32) / 255.0) * 255).astype(np.uint8))
+    step("check_safety", lambda: pipe.check_safety(rgb2))
+    cache = step("set_image", lambda: bf16.set_image(rgb2))
+    box2 = step("seed_bbox", lambda: bf16.seed_bbox(cache))
+    mask2 = step("predict_box", lambda: bf16.predict_box(
+        cache, box2 if box2 is not None else img_utils.estimate_bbox(rgb2)))
+    rgba2 = np.concatenate([rgb2, (mask2[..., None] * 255).astype(np.uint8)], axis=-1)
+    step("recenter_rescale", lambda: img_utils.recenter_rescale(rgba2, device="cuda"))
+    bf16._memo = None
+    step("preprocess (whole)", lambda: pipe.preprocess(raw))
+    log("phase preprocess: One2345Pipeline.preprocess warm on a 640x480 RGBA image, by step (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in steps.items()) + f" | {smi}")
+    del pipe, tower
+    return bf16, weights, rgb
+
+
+def png_photo(h: int, w: int, seed: int):
+    """A seeded photo-like RGBA frame: smooth shading with sensor noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    shade = np.stack([128 + 100 * np.sin(xx / 300) * np.cos(yy / 200),
+                      40 + 180 * xx / w, 60 + 150 * yy / h], axis=-1)
+    img = np.full((h, w, 4), 255, np.uint8)
+    img[..., :3] = (shade + rng.normal(0, 6, (h, w, 3))).clip(0, 255)
+    return img
+
+
+def png_read_seconds(read, expected) -> float:
+    """The best of three host times of ``read()``, whose result must equal
+    ``expected``."""
+    import numpy as np
+
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = read()
+        best = min(best, time.perf_counter() - t0)
+        if not np.array_equal(out, expected):
+            fail("png: a decoded file differs from the image written")
+    return best
+
+
+def phase_cli(params, sam_w, smi):
+    """The CLI on a seeded 640x480 RGBA PNG written with the port's encoder:
+    pipeline.cli.main([...]) with SAM on and the safety gate loaded (seeded
+    embeddings that do not flag), i.e. run(skip_preprocess=False) at full
+    width: spans, K1 launches, the mesh, every artifact read back.  Returns
+    the K1 launches."""
+    import json as json_mod
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+    from one2345_tpu_torch.pipeline import cli
+    from one2345_tpu_torch.recon.mesh_extract import load_ply
+    from one2345_tpu_torch.segmentation.safety import SafetyChecker
+    from one2345_tpu_torch.utils.png import decode_png, encode_png, read_png, row_filters, write_png
+
+    out_dir = os.path.join(PIPELINE_OUT, "cli")
+    os.makedirs(out_dir, exist_ok=True)
+    img_path = os.path.join(PIPELINE_OUT, "input.png")
+    raw = sam_input(480, 640, seed=45, rgba=True)
+    rng = np.random.default_rng(46)
+    safety = SafetyChecker(rng.standard_normal((3, 768)).astype(np.float32),
+                           np.full(3, 0.5, np.float32))
+    params = dict(params, sam=sam_w, safety=safety)
+    expected = 16 * (76 + 49 + 76 + 49)
+    try:
+        write_png(img_path, raw)
+        with open(img_path, "rb") as f:
+            rows = np.bincount(row_filters(f.read()), minlength=5)
+        if not (rows[1:] > 0).all():
+            fail(f"cli: the input PNG's rows by filter type {rows.tolist()} lack Sub, Up, "
+                 "Average or Paeth")
+        read_s = png_read_seconds(lambda: read_png(img_path), raw)
+        photo = png_photo(2048, 2048, seed=47)
+        photo_s = {}
+        paeth, adaptive = encode_png(photo, filter_type=4), encode_png(photo)
+        for kind, data in (("Paeth", paeth), ("adaptive", adaptive)):
+            photo_s[kind] = png_read_seconds(lambda: decode_png(data), photo)  # noqa: B023
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(["--img_path", img_path, "--out_dir", out_dir, "--output_format", ".obj"],
+                       params=params)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = flash_attention.launch_count
+        if launches != expected:
+            fail(f"cli: flash_attention launched {launches} times, expected {expected}")
+        if tuple(res.timings) != PIPELINE_SPANS or not res.timings["preprocess"] > 0:
+            fail(f"cli: spans {res.timings}, expected {PIPELINE_SPANS}")
+        check_mesh("cli", {"vertices": res.vertices, "faces": res.faces, "colors": res.colors})
+        polar = 90.0 - res.elevation
+        sel = list(range(8)) if polar <= 75 else [0, 1, 2, 3, 8, 9, 10, 11]
+        want = {f"stage1_8/{i}.png" for i in sel}
+        want |= {f"stage2_8/{i}_{j}.png" for i in sel for j in range(4)}
+        want |= {"pose.json", "mesh.ply", "mesh.obj"}
+        have = {os.path.relpath(os.path.join(d, f), out_dir)
+                for d, _, files in os.walk(out_dir) for f in files}
+        if have != want or res.mesh_path != os.path.join(out_dir, "mesh.obj"):
+            fail(f"cli: artifacts {sorted(have ^ want)} differ, mesh path {res.mesh_path}")
+        s1 = (res.stage1_images.cpu().numpy() * 255).astype(np.uint8)
+        s2 = (res.stage2_images.cpu().numpy() * 255).astype(np.uint8)
+        for k, i in enumerate(sel):
+            ok = np.array_equal(read_png(os.path.join(out_dir, "stage1_8", f"{i}.png")), s1[k])
+            for j in range(4):
+                ok &= np.array_equal(read_png(os.path.join(out_dir, "stage2_8", f"{i}_{j}.png")),
+                                     s2[k, j])
+            if not ok:
+                fail(f"cli: the PNGs of view {i} do not read back as their images")
+        with open(os.path.join(out_dir, "pose.json")) as f:
+            pose = json_mod.load(f)
+        v, faces, _ = load_ply(os.path.join(out_dir, "mesh.ply"))
+        if not np.array_equal(v, res.vertices.astype(np.float32)) or not np.array_equal(faces, res.faces):
+            fail("cli: mesh.ply does not read back as the mesh")
+        with open(os.path.join(out_dir, "mesh.obj")) as f:
+            kinds = [line[:2] for line in f]
+        if kinds.count("v ") != len(res.vertices) or kinds.count("f ") != len(res.faces):
+            fail("cli: mesh.obj does not hold the mesh")
+        if not np.array_equal(read_png(img_path), raw):
+            fail("cli: the input PNG does not read back")
+        log(
+            f"phase cli: read_png of the 640x480 RGBA input (rows None/Sub/Up/Average/Paeth "
+            f"{rows.tolist()}): {read_s * 1e3:.2f} ms; decode_png of a 2048x2048 RGBA photo, "
+            f"every row Paeth: {photo_s['Paeth'] * 1e3:.2f} ms, filtered adaptively: "
+            f"{photo_s['adaptive'] * 1e3:.2f} ms (best of 3, host) | {smi}"
+        )
+        log(
+            f"phase cli: one2345_tpu_torch.pipeline.cli.main on a 640x480 RGBA PNG (SAM on, "
+            f"safety gate loaded: 3 seeded concepts, no flag): " + ", ".join(
+                f"{k} {v:.4f} s" for k, v in res.timings.items())
+            + f", total {total:.4f} s | elevation {res.elevation} (polar {polar}) | "
+            f"flash_attention launches {launches} (expected {expected}) | {len(res.vertices)} "
+            f"vertices, {len(res.faces)} faces | {len(have)} artifacts and the input read back "
+            f"({len(pose)} pose entries) | peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB | {smi}"
+        )
+    finally:
+        shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
+    return launches
+
+
+def phase_sam_profile(stage, rgb, smi):
+    """One warm bf16 SAM encode under torch.profiler: device ms by kernel
+    family, the global blocks' share of the device time (kernels placed by
+    the encoder's 'sam_block_global' / 'sam_block_window' ranges), busy
+    share, peak memory."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("sam_block_global", "sam_block_window")
+    stage._memo = None
+    stage.set_image(rgb)  # warm
+    stage._memo = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage.set_image(rgb)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    peak, base = torch.cuda.max_memory_allocated() / 2**30, base / 2**30
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = [(e.name, e.time_range) for e in device if e.name in names]
+    events = [e for e in device if e.name not in names]
+    if not events:
+        fail("profiler: no device events in the SAM encode")
+    families, blocks, top = {}, {n: 0.0 for n in names + ("other",)}, {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        families[kernel_family(e.name)] = families.get(kernel_family(e.name), 0.0) + ms
+        where = next((n for n, r in ranges if r.start <= e.time_range.start < r.end), "other")
+        blocks[where] += ms
+        top[e.name] = top.get(e.name, 0.0) + ms
+    device_ms = sum(families.values())
+    busy = busy_ms(events)
+    log(
+        f"phase sam profile: warm bf16 encode wall {wall_ms:.1f} ms, device {device_ms:.2f} ms in "
+        f"{len(events)} device events, busy {busy:.1f} ms = {busy / wall_ms:.3f} of the wall | "
+        f"4 global blocks {blocks['sam_block_global']:.2f} ms "
+        f"({blocks['sam_block_global'] / device_ms:.3f} of the device time), 28 windowed blocks "
+        f"{blocks['sam_block_window']:.2f} ms, outside the blocks {blocks['other']:.2f} ms | by "
+        f"family (ms): {by_family(families)} | peak mem {peak:.2f} GiB ({peak - base:.2f} GiB "
+        f"above the {base:.2f} GiB held before the encode) | {smi}"
+    )
+    log("phase sam profile: top kernels (device ms): " + "; ".join(
+        f"{k[:100]} {v:.2f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:12]
+    ))
+
+
 def recon_params(seed: int) -> dict:
     """State dicts of a full-width ReconStage: ``seeded_state_dict`` weights
     for the feature, cost-volume and blending nets; the SDF MLP keeps the
@@ -1214,7 +1653,7 @@ def kernel_family(name: str) -> str:
     for family, keys in (
         ("copies", ("memcpy", "memset", "copy_kernel", "catarray")),
         ("convs", ("conv", "cudnn", "fprop", "implicit", "winograd", "nchwtonhwc", "nhwctonchw")),
-        ("matmuls", ("gemm", "gemv", "cutlass", "cublas")),
+        ("matmuls", ("gemm", "gemv", "cutlass", "cublas", "nvjet")),
         ("gathers", ("index", "gather", "scatter", "grid_sampler")),
         ("resize", ("upsample", "interp")),
         ("reductions", ("reduce",)),
@@ -1474,11 +1913,15 @@ def main() -> int:
     recon_stage, recon_images, recon_cams, recon_p = phase_recon(s2, smi)
     views = s2[0].clone()
     del s2
-    launches = phase_pipeline(params, recon_p, loftr_w, smi)
+    phase_pipeline(params, recon_p, loftr_w, smi)
+    sam_stage, sam_w, sam_image = phase_preprocess(params, smi)
+    launches = phase_cli({"zero123": params, "recon": recon_p, "loftr": loftr_w}, sam_w, smi)
+    del sam_w
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
     phase_device_times(rows, bwd_rows)
     phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
     phase_elevation_profile(estimator, views, smi)
+    phase_sam_profile(sam_stage, sam_image, smi)
 
     def json_bound_by(by: str) -> str:
         # the line names two kinds of bound: the exp unit's rate is a peak

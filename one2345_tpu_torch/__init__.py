@@ -4,26 +4,31 @@ The JAX package ``one2345_tpu`` is the reference; this package mirrors its
 module paths so that every module has a counterpart at the same sub-path.
 It imports torch, numpy and einops only, never JAX or ``one2345_tpu``.
 
-Ported so far: the image -> mesh path from a recentred 256^2 image
-(``pipeline.runner.One2345Pipeline.run``): Zero123-XL stage-1 / stage-2
-sampling, with the UNet's self-attention on hand-written CUDA
-flash-attention kernels (``csrc/``); the LoFTR elevation estimate; the lod0
-reconstruction stage (32 views -> colored mesh); and the Zero123 finetune
-step.
+Ported so far: the image -> mesh path (``pipeline.runner.One2345Pipeline
+.run``): preprocessing (thumbnail, the safety gate, SAM ViT-H segmentation,
+recentring), Zero123-XL stage-1 / stage-2 sampling, with the UNet's
+self-attention on hand-written CUDA flash-attention kernels (``csrc/``),
+the LoFTR elevation estimate and the lod0 reconstruction stage (32 views ->
+colored mesh); the CLI, service and HTTP server around it; and the Zero123
+finetune step.
 
 Subpackages
 -----------
-core         config dataclasses, device, timing
+core         config dataclasses, device, timing, checkpoints
 diffusion    Zero123-XL latent diffusion (UNet, VAE, CLIP, DDIM)
 elevation    LoFTR matching and the elevation pose sweep
 geometry     camera rig, projection, bilinear / trilinear sampling
-native       the host C++ marching tetrahedra, built with g++ at first use
+native       host C++ (marching tetrahedra, PNG row unfiltering), built with
+             g++ at first use
 nn           building blocks of the reconstruction networks
 ops          hand-written CUDA kernels and their plain PyTorch versions
-pipeline     One2345Pipeline: the image -> mesh runner and its exports
+pipeline     One2345Pipeline (the image -> mesh runner), the CLI, the
+             service and the HTTP server
 recon        reconstruction: FPN, cost volume, SDF MLP, blending net, mesh
+segmentation SAM ViT-H and the safety checker
 training     the Zero123 finetune step
-utils        weight conversion from the JAX parameter trees, a PNG writer
+utils        weight conversion from the JAX parameter trees, the PNG codec,
+             PIL's and OpenCV's resizes, image preprocessing
 """
 
 __version__ = "0.1.0"

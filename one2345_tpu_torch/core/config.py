@@ -201,8 +201,8 @@ class ReconConfig(_ConfigBase):
 
 @dataclass(frozen=True)
 class SamConfig(_ConfigBase):
-    """SAM ViT-H (utils/sam_utils.py:9-16; weights sam_vit_h_4b8939.pth).
-    Carried by ``PipelineConfig``; the SAM stage is not ported yet."""
+    """SAM ViT-H (utils/sam_utils.py:9-16; weights sam_vit_h_4b8939.pth):
+    ``segmentation.sam.SamStage``."""
 
     image_size: int = 1024
     patch_size: int = 16

@@ -41,6 +41,8 @@ STAGE1_DELTA_Y = [0.0 + 90 * (i % 4) if i < 4 else 30.0 + 90 * (i % 4) for i in 
 # stage-2 nearby-view deltas
 STAGE2_DELTA_X = [-10.0, 10.0, 0.0, 0.0]
 STAGE2_DELTA_Y = [0.0, 0.0, -10.0, 10.0]
+# the stage's modules: the keys of ``params``
+MODULES = ("unet", "encoder", "decoder", "clip", "cc_projection")
 
 
 def pose_tokens(delta_x_deg, delta_y_deg) -> np.ndarray:
@@ -131,7 +133,7 @@ class Zero123Stage:
                 embed_dim=cfg.clip.embed_dim,
             )
             self.cc_projection = CCProjection(cfg.clip.embed_dim + 4, cfg.unet.context_dim)
-        for name in ("unet", "encoder", "decoder", "clip", "cc_projection"):
+        for name in MODULES:
             module = getattr(self, name)
             if params is not None:
                 module.load_state_dict(params[name], strict=True)

@@ -4,8 +4,10 @@ Counterpart of ``one2345_tpu/pipeline/runner.py`` (reference: run.py,
 preprocess -> stage1_run -> stage2_run -> reconstruct, run.py:79-119).
 ``One2345Pipeline.run`` keeps the JAX runner's phase order and span names:
 
-1. ``preprocess`` (the input must already be a recentred 256^2 image:
-   preprocessing is not ported yet, ROADMAP item 9);
+1. ``preprocess``: thumbnail to 512, composite on white, the safety gate,
+   SAM seeds a bbox (``estimate_bbox`` when its proposal is degenerate) and
+   segments under a box prompt, recentre to 256^2 (``skip_preprocess=True``
+   takes an already recentred 256^2 image);
 2. ``stage1``: stage-1 views 0-3;
 3. ``stage2_view0``: the 4 nearby views of view 0;
 4. ``elevation``: the LoFTR elevation estimate from those 4 views, which
@@ -34,11 +36,11 @@ from one2345_tpu_torch.core.config import PipelineConfig
 from one2345_tpu_torch.core.device import resolve_device
 from one2345_tpu_torch.core.profiling import Timer
 from one2345_tpu_torch.geometry import cameras as cam
+from one2345_tpu_torch.utils import image as img_utils
 from one2345_tpu_torch.utils.png import write_png
 
 # the sampling phases of ``run``, each with its own noise seed
 PHASES = ("stage1", "stage2_view0", "stage1_ring2", "stage2")
-NOT_PORTED = "is not ported yet (ROADMAP §1 item 9: preprocessing, SAM and the safety checker)"
 
 
 def select_stage1b_plan(polar: float, n_devices: int):
@@ -68,7 +70,8 @@ def phase_seeds(seed: int) -> dict:
 
 class UnsafeImageError(RuntimeError):
     """Raised when the safety checker flags the input image
-    (demo/app.py:376-386); the checker is not ported yet."""
+    (the library-level equivalent of demo/app.py:376-386 returning the
+    unsafe-placeholder image)."""
 
 
 @dataclass
@@ -87,16 +90,18 @@ class One2345Pipeline:
     """The stages, built at first use from ``params``.
 
     :param params: state dicts keyed 'zero123' (``Zero123Stage`` params),
-        'recon' (``ReconStage``) and 'loftr' (``LoFTRMatcher``); a missing
-        key -> that stage initialised from its seed
-    :param use_sam: True is not ported yet (raises)
+        'recon' (``ReconStage``), 'loftr' (``LoFTRMatcher``) and 'sam'
+        (``SamStage``), and 'safety': a ``SafetyChecker`` or its keyword
+        arguments; a missing key -> that stage initialised from its seed
+        (the safety checker without weights flags nothing).  The tree
+        ``save_params`` writes loads back here.
+    :param use_sam: segment with SAM in ``preprocess`` (else alpha > 0 for
+        RGBA, not-near-white for RGB)
     :param device: None -> 'cuda' (raises without CUDA)
     """
 
     def __init__(self, config: PipelineConfig | None = None, params: dict | None = None,
-                 use_sam: bool = False, device=None):
-        if use_sam:
-            raise NotImplementedError(f"use_sam=True: SAM segmentation {NOT_PORTED}")
+                 use_sam: bool = True, device=None):
         self.config = config or PipelineConfig()
         self.device = resolve_device(device)
         self._params = params or {}
@@ -104,6 +109,8 @@ class One2345Pipeline:
         self._zero123 = None
         self._recon = None
         self._elev = None
+        self._sam = None
+        self._safety = None
 
     # lazy stage constructors -------------------------------------------------
     @property
@@ -137,28 +144,149 @@ class One2345Pipeline:
             self._elev = ElevationEstimator(matcher, focal=ecfg.focal, image_size=ecfg.image_size)
         return self._elev
 
-    # not ported --------------------------------------------------------------
-    def preprocess(self, raw_image, bbox=None, safety_check: bool = True):
-        raise NotImplementedError(f"One2345Pipeline.preprocess {NOT_PORTED}")
+    @property
+    def sam(self):
+        if self._sam is None:
+            from one2345_tpu_torch.segmentation.sam import SamStage
 
-    def check_safety(self, rgb_uint8) -> bool:
-        raise NotImplementedError(f"One2345Pipeline.check_safety {NOT_PORTED}")
+            self._sam = SamStage(self.config.sam, self._params.get("sam"), device=self.device)
+        return self._sam
+
+    @property
+    def safety(self):
+        if self._safety is None:
+            from one2345_tpu_torch.segmentation.safety import SafetyChecker
+
+            sp = self._params.get("safety")
+            self._safety = sp if isinstance(sp, SafetyChecker) else SafetyChecker(**(sp or {}))
+        return self._safety
+
+    def check_safety(self, rgb_uint8: np.ndarray) -> bool:
+        """NSFW gate on the input (demo/app.py nsfw_check:376-386): resize
+        to CLIP's frame as PIL BICUBIC resizes uint8, embed with the
+        zero123 stage's CLIP tower, score against the concept embeddings.
+        Free when no safety weights are loaded (the checker flags nothing)."""
+        if not self.safety.has_weights:
+            return False
+        from one2345_tpu_torch.diffusion.clip import preprocess_for_clip
+        from one2345_tpu_torch.utils.resample import pil_resize
+
+        csize = self.config.diffusion.clip.image_size
+        im = pil_resize(rgb_uint8, (csize, csize), "bicubic", device=self.device)
+        x = torch.as_tensor(im, device=self.device).float() / 127.5 - 1.0  # [-1, 1]
+        with torch.inference_mode():
+            emb = self.zero123.clip(preprocess_for_clip(x[None], csize))
+        return bool(self.safety.check(emb.float().cpu().numpy())[0])
+
+    # checkpointing -----------------------------------------------------------
+    def save_params(self, path: str) -> None:
+        """Persist every constructed stage's state dicts as one tree
+        (``core.checkpoint``); ``One2345Pipeline(params=checkpoint.restore(
+        path))`` loads it back."""
+        from one2345_tpu_torch.core import checkpoint
+        from one2345_tpu_torch.diffusion.zero123 import MODULES
+
+        tree = {}
+        if self._zero123 is not None:
+            tree["zero123"] = {n: getattr(self._zero123, n).state_dict() for n in MODULES}
+        if self._recon is not None:
+            tree["recon"] = {n: m.state_dict() for n, m in self._recon.modules().items()}
+        if self._sam is not None:
+            tree["sam"] = self._sam.modules.state_dict()
+        if self._elev is not None:
+            tree["loftr"] = self._elev.matcher.modules.state_dict()
+        checkpoint.save(path, tree)
+
+    # stages ------------------------------------------------------------------
+    def thumbnail_rgb(self, raw_image: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(the 512 thumbnail of a uint8 RGB(A) image, its RGB composited on
+        white); the composite truncates to uint8, as the JAX runner's
+        ``astype`` does."""
+        arr = img_utils.thumbnail(raw_image, 512, device=self.device)
+        if arr.shape[-1] != 4:
+            return arr, arr
+        return arr, (img_utils.composite_white(arr.astype(np.float32) / 255.0) * 255).astype(np.uint8)
+
+    def preprocess(self, raw_image: np.ndarray, bbox: tuple[int, int, int, int] | None = None,
+                   safety_check: bool = True) -> np.ndarray:
+        """uint8 RGB(A) -> [256, 256, 3] float32 in [0, 1], recentred on
+        white (run.py preprocess: thumbnail 512 -> SAM bbox segment ->
+        recentre).
+
+        :param bbox: optional (x0, y0, x1, y1) prompt in the 512-thumbnail
+            frame (the demo's bbox sliders, demo/app.py:418,607-614); None
+            -> SAM's own proposal, ``estimate_bbox`` when it is degenerate
+        :raises UnsafeImageError: when the safety checker flags the image
+        """
+        arr, rgb = self.thumbnail_rgb(raw_image)
+        if safety_check and self.check_safety(rgb):
+            raise UnsafeImageError("NSFW content detected")
+        if self.use_sam:
+            # one encode serves the bbox seed and the final box-prompted mask
+            cache = self.sam.set_image(rgb)
+            if bbox is None:
+                bbox = self.sam.seed_bbox(cache)
+                if bbox is None:
+                    bbox = img_utils.estimate_bbox(rgb)
+            mask = self.sam.predict_box(cache, bbox)
+        else:
+            mask = ~np.all(rgb > 245, axis=-1)
+            if arr.shape[-1] == 4:
+                mask = arr[..., 3] > 0
+        rgba = np.concatenate([rgb, (mask[..., None] * 255).astype(np.uint8)], axis=-1)
+        return img_utils.recenter_rescale(
+            rgba, out_size=self.config.diffusion.image_size, device=self.device)
 
     def warmup(self, mesh_resolution: int | None = None) -> dict:
-        """One ``run`` on a synthetic input, so that the first real request
-        finds the kernels built and the allocator warm; returns its timings.
-        (The JAX runner also compiles the pose sweep on empty slates here;
-        eager PyTorch has nothing to compile, so that step is left out.)"""
+        """One ``run`` on a synthetic input (and, with SAM, one
+        ``preprocess``), so that the first real request finds the kernels
+        built and the allocator warm; returns the run's timings.  (The JAX
+        runner also compiles the pose sweep on empty slates here; eager
+        PyTorch has nothing to compile, so that step is left out.)"""
         rng = np.random.default_rng(0)
         size = self.config.diffusion.image_size
         img = np.ones((size, size, 3), np.float32)
         q = size // 4
         img[q : 3 * q, q : 3 * q] = rng.uniform(0.2, 0.8, (2 * q, 2 * q, 3))
+        if self.use_sam:
+            pre = np.full((512, 512, 3), 255, np.uint8)
+            pre[128:384, 128:384] = rng.uniform(40, 200, (256, 256, 3)).astype(np.uint8)
+            self.preprocess(pre, safety_check=False)
         result = self.run(
             img, skip_preprocess=True,
             mesh_resolution=mesh_resolution or self.config.mesh_resolution, seed=0,
         )
         return result.timings
+
+    def run_many(self, images, seeds=None, out_dirs=None, max_in_flight: int = 2,
+                 **run_kwargs) -> list:
+        """Overlapped multi-request mode (serving): requests run in a small
+        thread pool, so one request's host work (marching tets, PLY and PNG
+        writes) overlaps another's device work.  Every run draws its noise
+        from its own seed, so the results equal sequential ``run`` calls.
+
+        :param seeds: per-request seeds (default: config.seed + index)
+        :param out_dirs: per-request out_dir list (default: no exports)
+        :return: list of PipelineResult in input order
+        """
+        from concurrent.futures import ThreadPoolExecutor
+
+        # build the lazy stages on the calling thread: the `is None` checks
+        # of the properties are not thread-safe
+        _ = self.zero123, self.recon, self.elevation_estimator, self.safety
+        if self.use_sam and not run_kwargs.get("skip_preprocess"):
+            _ = self.sam
+        n = len(images)
+        if seeds is None:
+            seeds = [self.config.seed + i for i in range(n)]
+        if out_dirs is None:
+            out_dirs = [None] * n
+
+        def one(i):
+            return self.run(images[i], out_dir=out_dirs[i], seed=seeds[i], **run_kwargs)
+
+        with ThreadPoolExecutor(max_workers=max_in_flight) as ex:
+            return list(ex.map(one, range(n)))
 
     # the main path -----------------------------------------------------------
     def run(
@@ -171,16 +299,16 @@ class One2345Pipeline:
         skip_preprocess: bool = False,
         noise_fn: dict | None = None,
     ) -> PipelineResult:
-        """Image -> textured mesh (predict_multiview + reconstruct).
+        """Image -> textured mesh (preprocess + predict_multiview +
+        reconstruct).
 
-        :param image: [256, 256, 3] f32 in [0, 1], recentred on white (a
-            tensor or an array); requires ``skip_preprocess=True``
+        :param image: a uint8 RGB(A) array of any size, or with
+            ``skip_preprocess=True`` a [256, 256, 3] f32 image in [0, 1]
+            recentred on white (a tensor or an array)
         :param noise_fn: optional {phase: noise_fn} for phases of
             ``PHASES``, each ``noise_fn(draw, view_ids, shape)`` as
             ``Zero123Stage.sample_views`` takes it
         """
-        if not skip_preprocess:
-            raise NotImplementedError(f"run(skip_preprocess=False): preprocessing {NOT_PORTED}")
         cfg = self.config
         timer = Timer(device=self.device)
         seeds = phase_seeds(cfg.seed if seed is None else seed)
@@ -189,7 +317,8 @@ class One2345Pipeline:
         steps2 = cfg.diffusion.ddim_steps_stage2
 
         with timer.span("preprocess"):
-            input_256 = torch.as_tensor(image, dtype=torch.float32).to(self.device)
+            input_256 = image if skip_preprocess else self.preprocess(image)
+            input_256 = torch.as_tensor(input_256, dtype=torch.float32).to(self.device)
 
         # stage 1a: the 4 same-elevation views; the elevation-dependent 4
         # come after the estimate

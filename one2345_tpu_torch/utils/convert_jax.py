@@ -6,7 +6,8 @@
 module, which the port's modules load with ``strict=True``;
 ``trainable_from_jax`` does the same for the trainer's trainable tree, and
 ``recon_from_jax`` for ``ReconStage.params`` ('fusion', 'sdf', 'render',
-'variance'), and ``loftr_from_jax`` for ``LoFTRMatcher.params``.
+'variance'), ``loftr_from_jax`` for ``LoFTRMatcher.params`` and
+``sam_from_jax`` for ``SamStage.params``.
 
 The port names its submodules after the flax scopes, so the mapping is
 mechanical:
@@ -16,6 +17,9 @@ mechanical:
   Linear weight (out, in); norm 'scale' -> 'weight';
 - the 'batch_stats' collection: 'mean' -> 'running_mean', 'var' ->
   'running_var';
+- flax ``ConvTranspose`` kernels (SAM's ``upscale_conv1/2``) apply without
+  a flip, so as ``nn.ConvTranspose2d`` weights [I, O, kh, kw] both spatial
+  axes are reversed (``sam_from_jax``);
 - every other leaf keeps its name and layout: biases, free parameters (CLIP
   embeddings and 'proj', the CCProjection 'kernel' used as ``x @ kernel``,
   the blending net's 's', the variance scalar) and the weight-normalised
@@ -107,3 +111,21 @@ def loftr_from_jax(params: Mapping) -> dict:
     and 'batch_stats') -> the state dict ``elevation.loftr.LoFTRMatcher``
     loads."""
     return flax_to_state_dict(params)
+
+
+def sam_from_jax(params: Mapping) -> dict:
+    """JAX ``SamStage.params`` ({'encoder', 'decoder'} flax variables and
+    'extra': {'pe_gaussian', 'box_embed'}) -> the state dict of
+    ``segmentation.sam.SamModules``."""
+    sd = {}
+    for part in ("encoder", "decoder"):
+        for key, value in flax_to_state_dict(params[part]).items():
+            sd[f"{part}.{key}"] = value
+    dec = params["decoder"].get("params", params["decoder"])
+    for name in ("upscale_conv1", "upscale_conv2"):
+        kernel = np.asarray(dec[name]["kernel"], np.float32)  # [kh, kw, I, O]
+        sd[f"decoder.{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]))
+    for name in ("pe_gaussian", "box_embed"):
+        sd[f"extra.{name}"] = torch.from_numpy(np.array(params["extra"][name], np.float32))
+    return sd

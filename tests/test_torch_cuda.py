@@ -96,3 +96,39 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_tiny_sam_stage_matches_cpu(cuda_device):
+    """The tiny SAM stage (grid 4, window 3: the padded windowed path and a
+    global block), f32 with TF32 off (matmuls and cuDNN), the CPU stage's
+    seeded weights on the card:
+    the embedding, the mask of a box prompt, and the resizes around them
+    (the uint8 INTER_LINEAR resize and the LANCZOS thumbnail bit for bit)."""
+    from one2345_tpu_torch.core.config import SamConfig
+    from one2345_tpu_torch.segmentation.sam import SamStage
+    from one2345_tpu_torch.utils import image, resample
+
+    cfg = SamConfig(image_size=64, patch_size=16, encoder_dim=32, encoder_depth=2,
+                    encoder_heads=2, global_attn_indexes=(1,), window_size=3,
+                    prompt_embed_dim=32, dtype="float32")
+    gen = torch.Generator().manual_seed(5)
+    img = torch.randint(0, 256, (48, 60, 3), generator=gen, dtype=torch.uint8).numpy()
+    big = torch.randint(0, 256, (700, 900, 4), generator=gen, dtype=torch.uint8).numpy()
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = SamStage(cfg, seed=3, device="cpu")
+        stages = {"cpu": cpu,
+                  cuda_device: SamStage(cfg, params=cpu.modules.state_dict(), device=cuda_device)}
+        caches = {d: s.set_image(img) for d, s in stages.items()}
+        masks = {d: s.predict_box(caches[d], (5, 6, 50, 40)) for d, s in stages.items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    ref, out = caches["cpu"]["embedding"], caches[cuda_device]["embedding"].cpu()
+    assert float((out - ref).norm() / ref.norm()) < 1e-5
+    assert float((masks["cpu"] == masks[cuda_device]).mean()) >= 0.999
+    assert torch.equal(resample.cv2_resize_linear(img, (128, 102), device=cuda_device).cpu(),
+                       resample.cv2_resize_linear(img, (128, 102), device="cpu"))
+    assert (image.thumbnail(big, 512, device=cuda_device)
+            == image.thumbnail(big, 512, device="cpu")).all()

@@ -1,7 +1,7 @@
 """one2345_tpu_torch stands alone: it imports no JAX, no flax, no optax,
-nothing of one2345_tpu, and no PIL or cv2 (the machine with the card has
-neither), and its entry points run on the card unless the caller asks for
-the CPU."""
+nothing of one2345_tpu, and no PIL, cv2 or scipy (the machine with the card
+has none of them), and its entry points run on the card unless the caller
+asks for the CPU."""
 
 import ast
 import json
@@ -9,11 +9,12 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "one2345_tpu", "PIL", "cv2")
+FORBIDDEN = ("jax", "flax", "optax", "one2345_tpu", "PIL", "cv2", "scipy")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -58,6 +59,14 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.recon.rendering_network",
         "one2345_tpu_torch.recon.sdf_network",
         "one2345_tpu_torch.utils.convert_jax",
+        "one2345_tpu_torch.utils.image",
+        "one2345_tpu_torch.utils.resample",
+        "one2345_tpu_torch.segmentation.sam",
+        "one2345_tpu_torch.segmentation.safety",
+        "one2345_tpu_torch.core.checkpoint",
+        "one2345_tpu_torch.pipeline.cli",
+        "one2345_tpu_torch.pipeline.api",
+        "one2345_tpu_torch.pipeline.server",
     ):
         assert module in report["modules"]
     leaked = [
@@ -119,6 +128,22 @@ def test_pipeline_and_elevation_default_to_the_card():
     for entry in (One2345Pipeline, LoFTRMatcher, ElevationEstimator):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
+
+
+def test_sam_stage_and_service_default_to_the_card():
+    from one2345_tpu_torch.pipeline.api import One2345Service
+    from one2345_tpu_torch.segmentation.sam import SamStage
+    from one2345_tpu_torch.utils.image import recenter_rescale, thumbnail
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    for entry in (SamStage, One2345Service):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        thumbnail(np.zeros((600, 600, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        recenter_rescale(np.zeros((8, 8, 4), np.uint8))
 
 
 def test_card_tests_import_no_jax():

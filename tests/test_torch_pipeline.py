@@ -140,15 +140,16 @@ def test_estimate_elevation_falls_back_on_none_only():
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runner.One2345Pipeline(use_sam=True, device="cpu")
+    """Preprocessing, SAM and the safety gate are ported; the fast modes
+    of the JAX CLI (the PLMS and DPM-Solver++ samplers, the int8 UNet) are
+    not, and say so."""
+    from one2345_tpu_torch.pipeline import cli
+
     pipe = runner.One2345Pipeline(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipe.run(np.ones((256, 256, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipe.preprocess(np.ones((256, 256, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipe.check_safety(np.ones((256, 256, 3), np.uint8))
+    assert pipe.use_sam and not pipe.check_safety(np.ones((8, 8, 3), np.uint8))
+    for mode in (dict(sampler="plms"), dict(sampler="dpmpp"), dict(quant="int8")):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            cli.apply_fast_modes(config.PipelineConfig(), **mode)
 
 
 def test_config_copies_match_jax():
@@ -189,10 +190,10 @@ def _jax_trees(jdiff):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """One tiny run of each runner on the same weights, input and noise,
-    each writing its artifacts (the port's mesh as .obj)."""
-    out = tmp_path_factory.mktemp("runs")
+def pipes():
+    """The JAX runner and the port's on the same weights (the tiny Zero123
+    config, the 16^3 recon volume), each with its elevation estimate
+    pinned to polar 60."""
     with jax.default_matmul_precision("highest"):
         jdiff = tiny_config(torch_side=False).replace(**STEPS)
         jcfg = jax_config.PipelineConfig(
@@ -202,7 +203,6 @@ def runs(tmp_path_factory):
             jcfg, params=_jax_trees(jdiff), use_sam=False, auto_mesh=False,
         )
         jpipe.estimate_elevation = lambda views: POLAR
-        ref = jpipe.run(_input_image(), out_dir=str(out / "jax"), skip_preprocess=True, seed=0)
     params = {
         "zero123": zero123_from_jax(jpipe.zero123.params),
         "recon": recon_from_jax(jpipe.recon.params),
@@ -212,11 +212,15 @@ def runs(tmp_path_factory):
         recon=config.ReconConfig(**SMALL_VOLUME),
         mesh_resolution=R,
     )
-    pipe = runner.One2345Pipeline(pcfg, params=params, device="cpu")
+    pipe = runner.One2345Pipeline(pcfg, params=params, use_sam=False, device="cpu")
     pipe.estimate_elevation = lambda views: POLAR
+    return jpipe, pipe
 
-    # the noise the JAX runner drew from its key splits (runner.py:364-365)
-    k_s1, k_s2e, k_s2 = jax.random.split(jax.random.key(0), 3)
+
+def jax_noise(jpipe, seed: int = 0) -> dict:
+    """{phase: noise_fn} replaying the noise the JAX runner draws from its
+    key splits (runner.py:364-365)."""
+    k_s1, k_s2e, k_s2 = jax.random.split(jax.random.key(seed), 3)
 
     def noise(key):
         def noise_fn(draw, view_ids, shape):
@@ -225,12 +229,22 @@ def runs(tmp_path_factory):
 
         return noise_fn
 
-    noise_fns = {
+    return {
         "stage1": noise(k_s1), "stage2_view0": noise(k_s2e),
         "stage1_ring2": noise(jax.random.fold_in(k_s1, 1)), "stage2": noise(k_s2),
     }
+
+
+@pytest.fixture(scope="module")
+def runs(pipes, tmp_path_factory):
+    """One tiny run of each runner on the same weights, input and noise,
+    each writing its artifacts (the port's mesh as .obj)."""
+    jpipe, pipe = pipes
+    out = tmp_path_factory.mktemp("runs")
+    with jax.default_matmul_precision("highest"):
+        ref = jpipe.run(_input_image(), out_dir=str(out / "jax"), skip_preprocess=True, seed=0)
     result = pipe.run(_input_image(), out_dir=str(out / "port"), skip_preprocess=True, seed=0,
-                      output_format=".obj", noise_fn=noise_fns)
+                      output_format=".obj", noise_fn=jax_noise(jpipe))
     return ref, result, out
 
 
@@ -253,6 +267,10 @@ def test_run_mesh_matches_the_jax_runner(runs):
     rounded to 1e-3), the port from the f32 field: the vertex count within
     3% and the Chamfer distance within 0.01 (tests/test_torch_recon.py)."""
     ref, out, _ = runs
+    check_mesh_against(ref, out)
+
+
+def check_mesh_against(ref, out):
     assert len(out.faces) > 100 and np.isfinite(out.vertices).all()
     ratio = len(out.vertices) / len(ref.vertices)
     d1 = cKDTree(ref.vertices).query(out.vertices)[0].mean()
@@ -292,19 +310,71 @@ def test_run_writes_the_jax_runner_s_artifacts(runs):
 
 
 def test_warmup_runs_one_synthetic_request():
-    pipe = runner.One2345Pipeline(config.PipelineConfig(mesh_resolution=48), device="cpu")
-    calls = []
+    """One run on a synthetic 256^2 input, and with SAM one preprocess of a
+    synthetic 512^2 image without the safety gate first."""
+    for use_sam in (True, False):
+        pipe = runner.One2345Pipeline(config.PipelineConfig(mesh_resolution=48), use_sam=use_sam,
+                                      device="cpu")
+        calls, pre = [], []
 
-    def run(image, **kwargs):
-        calls.append((image, kwargs))
-        return runner.PipelineResult(None, None, None, None, 0.0, None, None, {"stage1": 1.0})
+        def run(image, **kwargs):
+            calls.append((image, kwargs))
+            return runner.PipelineResult(None, None, None, None, 0.0, None, None, {"stage1": 1.0})
 
-    pipe.run = run
-    assert pipe.warmup() == {"stage1": 1.0}
-    (image, kwargs), = calls
-    assert image.shape == (256, 256, 3) and image.dtype == np.float32
-    assert image[0, 0].tolist() == [1.0, 1.0, 1.0] and image[128, 128].max() < 1.0
-    assert kwargs == {"skip_preprocess": True, "mesh_resolution": 48, "seed": 0}
+        pipe.run = run
+        pipe.preprocess = lambda image, **kwargs: pre.append((image, kwargs))
+        assert pipe.warmup() == {"stage1": 1.0}
+        (image, kwargs), = calls
+        assert image.shape == (256, 256, 3) and image.dtype == np.float32
+        assert image[0, 0].tolist() == [1.0, 1.0, 1.0] and image[128, 128].max() < 1.0
+        assert kwargs == {"skip_preprocess": True, "mesh_resolution": 48, "seed": 0}
+        assert len(pre) == int(use_sam)
+        if use_sam:
+            (image, kwargs), = pre
+            assert image.shape == (512, 512, 3) and image.dtype == np.uint8
+            assert kwargs == {"safety_check": False}
+
+
+def test_run_from_a_raw_image_matches_the_jax_runner(pipes, tmp_path):
+    """run(skip_preprocess=False) on a raw 120x90 RGBA image with the tiny
+    SAM of tests/test_torch_sam.py (window 3) on both sides: preprocessing
+    (thumbnail, SAM seed bbox, box-prompted mask, recentring) then the
+    sampling phases with the JAX noise and the reconstruction.  The JAX
+    runner here is the one of ``runs``, already compiled."""
+    from one2345_tpu.segmentation.sam import SamStage as JaxSamStage
+    from one2345_tpu_torch.segmentation.sam import SamStage
+    from one2345_tpu_torch.utils.convert_jax import sam_from_jax
+    from tests.test_torch_sam import TINY
+
+    jpipe, pipe = pipes
+    kw = dict(TINY, window_size=3)
+    with jax.default_matmul_precision("highest"):
+        jsam = JaxSamStage(jax_config.SamConfig(**kw), params={})
+        jsam.params = randomize(jax.eval_shape(jsam.init_params, jax.random.key(0)), 21)
+    rng = np.random.default_rng(6)
+    raw = np.zeros((90, 120, 4), np.uint8)
+    yy, xx = np.mgrid[:90, :120]
+    obj = ((yy - 50) / 28.0) ** 2 + ((xx - 55) / 30.0) ** 2 < 1
+    raw[obj] = np.concatenate([rng.integers(20, 200, (int(obj.sum()), 3)),
+                               np.full((int(obj.sum()), 1), 255)], axis=1)
+    try:
+        jpipe._sam, jpipe.use_sam = jsam, True
+        pipe._sam = SamStage(config.SamConfig(**kw), params=sam_from_jax(jsam.params), device="cpu")
+        pipe.use_sam = True
+        with jax.default_matmul_precision("highest"):
+            ref = jpipe.run(raw, seed=0)
+        out = pipe.run(raw, seed=0, output_format=".obj", out_dir=str(tmp_path),
+                       noise_fn=jax_noise(jpipe))
+    finally:
+        jpipe._sam, jpipe.use_sam, pipe._sam, pipe.use_sam = None, False, None, False
+    assert out.elevation == ref.elevation == 90.0 - POLAR
+    assert set(out.timings) == set(ref.timings) and out.timings["preprocess"] > 0
+    s1 = np.asarray(ref.stage1_images)
+    assert float(np.mean((s1 > 0.01) & (s1 < 0.99))) > 0.2  # not saturated
+    assert max_err(out.stage1_images, ref.stage1_images) <= IMAGE_TOL
+    assert max_err(out.stage2_images, ref.stage2_images) <= IMAGE_TOL
+    check_mesh_against(ref, out)
+    assert out.mesh_path == str(tmp_path / "mesh.obj")
 
 
 def test_phase_seeds_are_distinct_and_repeatable():
