@@ -70,23 +70,38 @@ Phases, one line each; any failure exits non-zero and prints no result:
    weights of phases 6 to 10, seconds per span, 4000 K1 launches, the mesh
    checks, every artifact and the input read back with the port's readers,
    then removed;
-12. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
+12. fast modes: cli.main on the same PNG with --sampler dpmpp --quant int8
+   and with --sampler dpmpp (DPM-Solver++(2M) at 30 / 25 steps: 1792 K1
+   launches each, the int8 GEMMs counted; spans against phase 11's DDIM
+   run, the mesh checks, every artifact read back); one PLMS stage-1 call
+   at 75 steps (1248 K1 launches); one quantized conv of each kind at level
+   0 (3x3 640->320, the 1x1 skip, the stride-2 op; B=8) card against CPU:
+   activation codes, scale and int32 accumulations equal bit for bit, the
+   bf16 output within one rounding; the full-width int8 UNet (B=2) card
+   against CPU, and against the card's bf16 UNet (the quantization error);
+   the PLMS, DPM-Solver++ and img2img loops at [8, 32, 32, 4] card f32
+   against CPU f32; int8 and bf16 UNet evals at B=8 and B=56 timed;
+13. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
    remat, f32 weights, bf16 autocast): one cold step and five warm ones,
    each timed, its launches counted, and the first one's gradients, params
    and EMA checked;
-13. device times: each kernel's device time per launch (torch.profiler) at
+14. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 to 12, which a profiled run can slow on the
+   after the timed phases 6 to 13, which a profiled run can slow on the
    host; then one warm reconstruct, one warm elevation estimate and one
    warm bf16 SAM encode under torch.profiler: device ms by kernel family
    (for SAM also the global blocks' share), the device's busy share, host
-   ms of marching tets.
+   ms of marching tets; last, one card QConv2d call of each kind (the
+   integer GEMM inside its range, no conv kernel) and the int8 and bf16
+   UNet evals at B=8 and B=56: device ms by family, and the int8 GEMMs'
+   and the quantize and dequantize passes' shares.
 
 Then the kernels' JSON line (K1's launches are those of the CLI run, the
 main path from a raw image), the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout (the pipeline's and
-the CLI's files go to _smoke_out/, removed at the end of phases 9 and 11).
+the CLI's files go to _smoke_out/, removed at the end of phases 9, 11 and
+12).
 """
 
 from __future__ import annotations
@@ -144,6 +159,22 @@ SAM_EMBED_TOL = 1e-4  # relative L2 of the [1, 64, 64, 256] embedding
 SAM_MASK_AGREEMENT = 0.999  # pixels of one box prompt's mask
 SAM_BF16_TOL = 5e-2  # relative L2, bf16 embedding against the f32 one
 PIPELINE_SPANS = ("preprocess", "stage1", "stage2_view0", "elevation", "stage2", "reconstruct")
+# the fast-modes phase
+INT8_OUT_TOL = 2**-8  # a quantized conv's bf16 output, card vs CPU, over max |ref|: one rounding
+# relative L2, the int8 UNet card (bf16 compute) vs CPU (f32 compute): bf16
+# rounding (1.5e-2 for the bf16 UNet) moves activations across rounding ties,
+# and the layers after a flipped code land on other codes, so the two end up
+# as far apart as int8 is from bf16 (5.6e-2 on these weights, and 5.8e-2 card
+# vs CPU, NVIDIA H100 80GB HBM3, 700 W); every int8 layer of the eval is also
+# replayed on the CPU from the card's own input, bit for bit
+INT8_UNET_TOL = 0.1
+SAMPLER_TOL = 1e-5  # relative L2, sampler and img2img update math, card f32 vs CPU f32
+INT8_RANGES = ("int8_quantize", "int8_gemm", "int8_dequantize")  # QConv2d's profiler ranges
+# (name, kernel, stride, padding, C_in, C_out) of the quantized convs checked at
+# level 0 (32x32) on the CFG batch of 4 views: out_0_1_res.in_conv and .skip, down_0.op
+INT8_CONVS = [("3x3", 3, 1, 1, 640, 320), ("1x1", 1, 1, 0, 640, 320), ("down", 3, 2, 1, 320, 320)]
+DPMPP_EVALS = 31 + 25 + 31 + 25  # make_ddim_schedule(30) and (25) entries, stage 1, 2, 1, 2
+PLMS_STAGE1_EVALS = 77 + 1  # make_ddim_schedule(75) entries and PLMS's Heun step
 # the runner's outputs go here, inside the checkout (gitignored), and are
 # removed at the end of the phase
 PIPELINE_OUT = os.path.join(REPO, "_smoke_out")
@@ -232,12 +263,14 @@ def device_ms_per_launch(fn, kernel: str, iters: int) -> tuple[float, int]:
     fail(f"profiler: {counts} launches of {kernel} recorded in three profiled runs of {iters} calls")
 
 
-def device_ms_per_call(fn, iters: int) -> tuple[float, list[str]]:
+def device_ms_per_call(fn, iters: int, exclude=()) -> tuple[float, list[str]]:
     """(device ms per call, names of the device kernels) of ``fn``: the sum
     of every kernel's and copy's device time in a torch.profiler run of
-    ``iters`` calls, over the calls.  A run that recorded fewer than 0.9 of
-    the device events of ``iters`` single-call runs is made again, up to
-    three runs in all; fails if none did."""
+    ``iters`` calls, over the calls; ``exclude`` names record_function
+    ranges, which the device timeline also lists and which are not work.
+    A run that recorded fewer than 0.9 of the device events of ``iters``
+    single-call runs is made again, up to three runs in all; fails if none
+    did."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -247,7 +280,7 @@ def device_ms_per_call(fn, iters: int) -> tuple[float, list[str]]:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in exclude]
 
     fn()
     torch.cuda.synchronize()
@@ -1345,12 +1378,37 @@ def png_read_seconds(read, expected) -> float:
     return best
 
 
-def phase_cli(params, sam_w, smi):
-    """The CLI on a seeded 640x480 RGBA PNG written with the port's encoder:
-    pipeline.cli.main([...]) with SAM on and the safety gate loaded (seeded
-    embeddings that do not flag), i.e. run(skip_preprocess=False) at full
-    width: spans, K1 launches, the mesh, every artifact read back.  Returns
-    the K1 launches."""
+def cli_input():
+    """The seeded 640x480 RGBA input of the CLI phases, written with the
+    port's encoder to _smoke_out/input.png; returns (path, image)."""
+    from one2345_tpu_torch.utils.png import write_png
+
+    os.makedirs(PIPELINE_OUT, exist_ok=True)
+    img_path = os.path.join(PIPELINE_OUT, "input.png")
+    raw = sam_input(480, 640, seed=45, rgba=True)
+    write_png(img_path, raw)
+    return img_path, raw
+
+
+def cli_params(params, sam_w):
+    """The CLI's parameter tree: the stages' seeded weights, SAM's, and a
+    safety gate with seeded concept embeddings that do not flag."""
+    import numpy as np
+
+    from one2345_tpu_torch.segmentation.safety import SafetyChecker
+
+    rng = np.random.default_rng(46)
+    safety = SafetyChecker(rng.standard_normal((3, 768)).astype(np.float32),
+                           np.full(3, 0.5, np.float32))
+    return dict(params, sam=sam_w, safety=safety)
+
+
+def cli_run(name: str, flags: list, img_path: str, raw, params, expected: int):
+    """pipeline.cli.main on the input PNG with ``flags`` at full width, SAM
+    on: K1 launches (``expected``), the spans, the mesh, every artifact and
+    the input read back.  Returns (result, call seconds, K1 launches, the
+    artifacts' count, pose entries, peak GiB); the output directory is
+    removed."""
     import json as json_mod
     import shutil
 
@@ -1360,20 +1418,86 @@ def phase_cli(params, sam_w, smi):
     from one2345_tpu_torch.ops.flash_attention import flash_attention
     from one2345_tpu_torch.pipeline import cli
     from one2345_tpu_torch.recon.mesh_extract import load_ply
-    from one2345_tpu_torch.segmentation.safety import SafetyChecker
-    from one2345_tpu_torch.utils.png import decode_png, encode_png, read_png, row_filters, write_png
+    from one2345_tpu_torch.utils.png import read_png
 
     out_dir = os.path.join(PIPELINE_OUT, "cli")
-    os.makedirs(out_dir, exist_ok=True)
-    img_path = os.path.join(PIPELINE_OUT, "input.png")
-    raw = sam_input(480, 640, seed=45, rgba=True)
-    rng = np.random.default_rng(46)
-    safety = SafetyChecker(rng.standard_normal((3, 768)).astype(np.float32),
-                           np.full(3, 0.5, np.float32))
-    params = dict(params, sam=sam_w, safety=safety)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(["--img_path", img_path, "--out_dir", out_dir, "--output_format", ".obj",
+                        *flags], params=params)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = flash_attention.launch_count
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != expected:
+            fail(f"{name}: flash_attention launched {launches} times, expected {expected}")
+        if tuple(res.timings) != PIPELINE_SPANS or not res.timings["preprocess"] > 0:
+            fail(f"{name}: spans {res.timings}, expected {PIPELINE_SPANS}")
+        check_mesh(name, {"vertices": res.vertices, "faces": res.faces, "colors": res.colors})
+        polar = 90.0 - res.elevation
+        sel = list(range(8)) if polar <= 75 else [0, 1, 2, 3, 8, 9, 10, 11]
+        want = {f"stage1_8/{i}.png" for i in sel}
+        want |= {f"stage2_8/{i}_{j}.png" for i in sel for j in range(4)}
+        want |= {"pose.json", "mesh.ply", "mesh.obj"}
+        have = {os.path.relpath(os.path.join(d, f), out_dir)
+                for d, _, files in os.walk(out_dir) for f in files}
+        if have != want or res.mesh_path != os.path.join(out_dir, "mesh.obj"):
+            fail(f"{name}: artifacts {sorted(have ^ want)} differ, mesh path {res.mesh_path}")
+        s1 = (res.stage1_images.cpu().numpy() * 255).astype(np.uint8)
+        s2 = (res.stage2_images.cpu().numpy() * 255).astype(np.uint8)
+        for k, i in enumerate(sel):
+            ok = np.array_equal(read_png(os.path.join(out_dir, "stage1_8", f"{i}.png")), s1[k])
+            for j in range(4):
+                ok &= np.array_equal(read_png(os.path.join(out_dir, "stage2_8", f"{i}_{j}.png")),
+                                     s2[k, j])
+            if not ok:
+                fail(f"{name}: the PNGs of view {i} do not read back as their images")
+        with open(os.path.join(out_dir, "pose.json")) as f:
+            pose = json_mod.load(f)
+        v, faces, _ = load_ply(os.path.join(out_dir, "mesh.ply"))
+        if not np.array_equal(v, res.vertices.astype(np.float32)) or not np.array_equal(faces, res.faces):
+            fail(f"{name}: mesh.ply does not read back as the mesh")
+        with open(os.path.join(out_dir, "mesh.obj")) as f:
+            kinds = [line[:2] for line in f]
+        if kinds.count("v ") != len(res.vertices) or kinds.count("f ") != len(res.faces):
+            fail(f"{name}: mesh.obj does not hold the mesh")
+        if not np.array_equal(read_png(img_path), raw):
+            fail(f"{name}: the input PNG does not read back")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return res, total, launches, len(have), len(pose), peak
+
+
+def cli_line(res, total: float, launches: int, expected: int, n_files: int, n_pose: int,
+             peak: float) -> str:
+    polar = 90.0 - res.elevation
+    return (
+        ", ".join(f"{k} {v:.4f} s" for k, v in res.timings.items())
+        + f", total {total:.4f} s | elevation {res.elevation} (polar {polar}) | "
+        f"flash_attention launches {launches} (expected {expected}) | {len(res.vertices)} "
+        f"vertices, {len(res.faces)} faces | {n_files} artifacts and the input read back "
+        f"({n_pose} pose entries) | peak mem {peak:.2f} GiB"
+    )
+
+
+def phase_cli(params, sam_w, smi):
+    """The CLI on a seeded 640x480 RGBA PNG written with the port's encoder:
+    pipeline.cli.main([...]) with SAM on and the safety gate loaded (seeded
+    embeddings that do not flag), i.e. run(skip_preprocess=False) at full
+    width: spans, K1 launches, the mesh, every artifact read back.  Returns
+    the K1 launches."""
+    import shutil
+
+    import numpy as np
+
+    from one2345_tpu_torch.utils.png import decode_png, encode_png, read_png, row_filters
+
     expected = 16 * (76 + 49 + 76 + 49)
     try:
-        write_png(img_path, raw)
+        img_path, raw = cli_input()
         with open(img_path, "rb") as f:
             rows = np.bincount(row_filters(f.read()), minlength=5)
         if not (rows[1:] > 0).all():
@@ -1385,49 +1509,7 @@ def phase_cli(params, sam_w, smi):
         paeth, adaptive = encode_png(photo, filter_type=4), encode_png(photo)
         for kind, data in (("Paeth", paeth), ("adaptive", adaptive)):
             photo_s[kind] = png_read_seconds(lambda: decode_png(data), photo)  # noqa: B023
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.launch_count = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = cli.main(["--img_path", img_path, "--out_dir", out_dir, "--output_format", ".obj"],
-                       params=params)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        launches = flash_attention.launch_count
-        if launches != expected:
-            fail(f"cli: flash_attention launched {launches} times, expected {expected}")
-        if tuple(res.timings) != PIPELINE_SPANS or not res.timings["preprocess"] > 0:
-            fail(f"cli: spans {res.timings}, expected {PIPELINE_SPANS}")
-        check_mesh("cli", {"vertices": res.vertices, "faces": res.faces, "colors": res.colors})
-        polar = 90.0 - res.elevation
-        sel = list(range(8)) if polar <= 75 else [0, 1, 2, 3, 8, 9, 10, 11]
-        want = {f"stage1_8/{i}.png" for i in sel}
-        want |= {f"stage2_8/{i}_{j}.png" for i in sel for j in range(4)}
-        want |= {"pose.json", "mesh.ply", "mesh.obj"}
-        have = {os.path.relpath(os.path.join(d, f), out_dir)
-                for d, _, files in os.walk(out_dir) for f in files}
-        if have != want or res.mesh_path != os.path.join(out_dir, "mesh.obj"):
-            fail(f"cli: artifacts {sorted(have ^ want)} differ, mesh path {res.mesh_path}")
-        s1 = (res.stage1_images.cpu().numpy() * 255).astype(np.uint8)
-        s2 = (res.stage2_images.cpu().numpy() * 255).astype(np.uint8)
-        for k, i in enumerate(sel):
-            ok = np.array_equal(read_png(os.path.join(out_dir, "stage1_8", f"{i}.png")), s1[k])
-            for j in range(4):
-                ok &= np.array_equal(read_png(os.path.join(out_dir, "stage2_8", f"{i}_{j}.png")),
-                                     s2[k, j])
-            if not ok:
-                fail(f"cli: the PNGs of view {i} do not read back as their images")
-        with open(os.path.join(out_dir, "pose.json")) as f:
-            pose = json_mod.load(f)
-        v, faces, _ = load_ply(os.path.join(out_dir, "mesh.ply"))
-        if not np.array_equal(v, res.vertices.astype(np.float32)) or not np.array_equal(faces, res.faces):
-            fail("cli: mesh.ply does not read back as the mesh")
-        with open(os.path.join(out_dir, "mesh.obj")) as f:
-            kinds = [line[:2] for line in f]
-        if kinds.count("v ") != len(res.vertices) or kinds.count("f ") != len(res.faces):
-            fail("cli: mesh.obj does not hold the mesh")
-        if not np.array_equal(read_png(img_path), raw):
-            fail("cli: the input PNG does not read back")
+        run = cli_run("cli", [], img_path, raw, cli_params(params, sam_w), expected)
         log(
             f"phase cli: read_png of the 640x480 RGBA input (rows None/Sub/Up/Average/Paeth "
             f"{rows.tolist()}): {read_s * 1e3:.2f} ms; decode_png of a 2048x2048 RGBA photo, "
@@ -1435,18 +1517,321 @@ def phase_cli(params, sam_w, smi):
             f"{photo_s['adaptive'] * 1e3:.2f} ms (best of 3, host) | {smi}"
         )
         log(
-            f"phase cli: one2345_tpu_torch.pipeline.cli.main on a 640x480 RGBA PNG (SAM on, "
-            f"safety gate loaded: 3 seeded concepts, no flag): " + ", ".join(
-                f"{k} {v:.4f} s" for k, v in res.timings.items())
-            + f", total {total:.4f} s | elevation {res.elevation} (polar {polar}) | "
-            f"flash_attention launches {launches} (expected {expected}) | {len(res.vertices)} "
-            f"vertices, {len(res.faces)} faces | {len(have)} artifacts and the input read back "
-            f"({len(pose)} pose entries) | peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-            f"GiB | {smi}"
+            "phase cli: one2345_tpu_torch.pipeline.cli.main on a 640x480 RGBA PNG (SAM on, "
+            "safety gate loaded: 3 seeded concepts, no flag): "
+            + cli_line(*run[:3], expected, *run[3:]) + f" | {smi}"
         )
     finally:
         shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
-    return launches
+    return run
+
+
+def quantized_conv_pair(name: str, k: int, stride: int, padding: int, cin: int, cout: int):
+    """A seeded conv of INT8_CONVS as a CPU QConv2d and a card one (bf16
+    outputs), and its bf16 input [8, C_in, 32, 32] on the CPU."""
+    import torch
+
+    from one2345_tpu_torch.diffusion.quantize import QConv2d
+
+    conv = torch.nn.Conv2d(cin, cout, k, stride=stride, padding=padding)
+    conv.load_state_dict(seeded_state_dict(conv, seed=60 + k + stride))
+    cpu, card = QConv2d.from_float(conv), QConv2d.from_float(conv).cuda()
+    cpu.dtype = card.dtype = torch.bfloat16
+    x = torch.randn(8, cin, 32, 32, generator=torch.Generator().manual_seed(61 + cin)).bfloat16()
+    return conv, cpu, card, x
+
+
+def int8_unet(state, device: str, dtype):
+    """The full-width int8 UNet of a quantized state on ``device``."""
+    import torch
+
+    from one2345_tpu_torch.core.config import DiffusionConfig
+    from one2345_tpu_torch.diffusion.unet import cast_compute
+    from one2345_tpu_torch.diffusion.zero123 import make_unet
+
+    with torch.device("meta"):
+        unet = make_unet(DiffusionConfig().unet, quant=True)
+    unet = unet.to_empty(device=device)
+    unet.load_state_dict(state, strict=True)
+    return cast_compute(unet, dtype).eval()
+
+
+def sampler_math(device: str) -> dict:
+    """The PLMS, DPM-Solver++ and img2img loops at the full latent shape
+    [8, 32, 32, 4] on ``device`` in f32, driven by eps = 0.3 x + 0.1 tanh(x)
+    + c[t] with a seeded table c: {name: (output, UNet evals)}."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.diffusion import img2img
+    from one2345_tpu_torch.diffusion.dpm_solver import dpmpp_sample
+    from one2345_tpu_torch.diffusion.plms import plms_sample
+    from one2345_tpu_torch.diffusion.schedule import make_ddim_schedule
+
+    rng = np.random.default_rng(70)
+    table = torch.from_numpy((0.2 * rng.standard_normal((1000, 32, 32, 4))).astype(np.float32)).to(device)
+    x = torch.from_numpy(rng.standard_normal((8, 32, 32, 4)).astype(np.float32)).to(device)
+    noise = torch.from_numpy(rng.standard_normal((51, 8, 32, 32, 4)).astype(np.float32)).to(device)
+    evals = []
+
+    def eps(v, t):
+        evals.append(t)
+        return 0.3 * v + 0.1 * torch.tanh(v) + table[t]
+
+    def run(fn):
+        evals.clear()
+        return fn(), len(evals)
+
+    eta0, eta1 = make_ddim_schedule(50, eta=0.0), make_ddim_schedule(50, eta=1.0)
+    return {
+        "plms 75 (77 entries)": run(lambda: plms_sample(eps, x, make_ddim_schedule(75, eta=0.0))),
+        "dpmpp 30 (31 entries)": run(lambda: dpmpp_sample(eps, x, make_ddim_schedule(30, eta=0.0))),
+        "dpmpp 25 (25 entries)": run(lambda: dpmpp_sample(eps, x, make_ddim_schedule(25, eta=0.0))),
+        "ddim_encode 50, t_enc 30": run(lambda: img2img.ddim_encode(eps, x, eta0, 30)),
+        "stochastic_encode 50, t [0, 7, ..., 49]": run(lambda: img2img.stochastic_encode(
+            x, [0, 7, 14, 21, 28, 35, 42, 49], eta0, noise[0])),
+        "ddim_decode 50 eta 1, t_start 30": run(lambda: img2img.ddim_decode(
+            eps, x, eta1, 30, noise_fn=lambda d, shape: noise[d])),
+    }
+
+
+def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
+    """The CLI's fast modes at full width, unprofiled (the profile of the
+    int8 UNet comes last, in phase_fast_modes_profile): the CLI from the
+    phase-11 PNG with --sampler dpmpp --quant int8 and with --sampler dpmpp,
+    one PLMS stage-1 call, the quantized convs and the int8 UNet card
+    against CPU, the sampler update math card against CPU, and the int8 and
+    bf16 UNet evals timed.  Returns the card's int8 UNet."""
+    import shutil
+
+    import torch
+
+    from one2345_tpu_torch.diffusion import quantize as q
+    from one2345_tpu_torch.diffusion.zero123 import STAGE1_DELTA_X, STAGE1_DELTA_Y
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+
+    # the CLI, first: the timed runs before any profiled one
+    expected = 16 * DPMPP_EVALS
+    ddim_res, ddim_total = ddim_run[0], ddim_run[1]
+    n_qconv = None
+    try:
+        img_path, raw = cli_input()
+        for flags in (["--sampler", "dpmpp", "--quant", "int8"], ["--sampler", "dpmpp"]):
+            q.int8_matmul.launch_count = 0
+            run = cli_run("fast modes cli " + " ".join(flags), flags, img_path, raw,
+                          cli_params(params, sam_w), expected)
+            gemms = q.int8_matmul.launch_count
+            if "int8" in flags:
+                n_qconv = gemms // DPMPP_EVALS
+                if n_qconv * DPMPP_EVALS != gemms or n_qconv < 1:
+                    fail(f"fast modes: {gemms} int8 GEMMs in {DPMPP_EVALS} UNet evals")
+            elif gemms:
+                fail(f"fast modes: {gemms} int8 GEMMs without --quant int8")
+            res, total = run[0], run[1]
+            sampling = sum(res.timings[k] for k in ("stage1", "stage2_view0", "stage2"))
+            ddim_sampling = sum(ddim_res.timings[k] for k in ("stage1", "stage2_view0", "stage2"))
+            log(
+                f"phase fast modes: cli.main {' '.join(flags)} on the phase-11 PNG (SAM on, gate "
+                f"loaded): " + cli_line(*run[:3], expected, *run[3:])
+                + f" | int8 GEMM launches {gemms} | sampling spans {sampling:.4f} s = "
+                f"{sampling / ddim_sampling:.3f} of the DDIM run's {ddim_sampling:.4f} s, call "
+                f"{total / ddim_total:.3f} of its {ddim_total:.4f} s | {smi}"
+            )
+    finally:
+        shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
+
+    # one full-width PLMS stage-1 call: views 0-3, 75 steps
+    img = torch.as_tensor(input_image(), device="cuda") * 2.0 - 1.0
+    flash_attention.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = stage.sample_views(img[None].expand(4, *img.shape), STAGE1_DELTA_X[:4],
+                             STAGE1_DELTA_Y[:4], seed=1, steps=75, sampler="plms",
+                             noise_ids=[0, 1, 2, 3])
+    torch.cuda.synchronize()
+    plms_s = time.perf_counter() - t0
+    if flash_attention.launch_count != 16 * PLMS_STAGE1_EVALS:
+        fail(f"plms stage1: {flash_attention.launch_count} K1 launches, expected "
+             f"{16 * PLMS_STAGE1_EVALS}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        fail("plms stage1: images not finite in [0, 1]")
+    log(f"phase fast modes: Zero123Stage.sample_views(sampler='plms', steps=75) of stage-1 "
+        f"views 0-3 (B=8 with CFG): {plms_s:.4f} s, K1 launches {flash_attention.launch_count} "
+        f"(expected {16 * PLMS_STAGE1_EVALS} = 16 x ({PLMS_STAGE1_EVALS - 1} entries + the "
+        f"Heun eval)) | {smi}")
+
+    # one quantized conv of each kind, card against CPU
+    for name, k, stride, padding, cin, cout in INT8_CONVS:
+        conv, cpu, card, x = quantized_conv_pair(name, k, stride, padding, cin, cout)
+        xc = x.cuda()
+        codes, xs = q.quantize_activation(xc)
+        acc, _ = card.accumulate(xc)
+        out = card(xc)
+        torch.cuda.synchronize()
+        ref_codes, ref_xs = q.quantize_activation(x)
+        ref_acc, _ = cpu.accumulate(x)
+        ref = cpu(x)
+        if not torch.equal(codes.cpu(), ref_codes) or not torch.equal(xs.cpu(), ref_xs):
+            fail(f"int8 conv {name}: activation codes or scale differ card vs CPU")
+        if acc.dtype != torch.int32 or not torch.equal(acc.cpu(), ref_acc):
+            fail(f"int8 conv {name}: int32 accumulations differ card vs CPU")
+        err = float((out.float().cpu() - ref.float()).abs().max()) / float(ref.float().abs().max())
+        if out.dtype != torch.bfloat16 or err > INT8_OUT_TOL:
+            fail(f"int8 conv {name}: bf16 output {err} of max |ref| from the CPU's (> {INT8_OUT_TOL})")
+        bf16 = conv.cuda().bfloat16()
+        int8_ms, bf16_ms = time_ms(lambda: card(xc), 20), time_ms(lambda: bf16(xc), 20)  # noqa: B023
+        log(f"phase fast modes: int8 conv {name} k={k} s={stride} C {cin}->{cout} at 8x32x32: "
+            f"codes, scale and int32 accumulations [{', '.join(map(str, acc.shape))}] equal card "
+            f"vs CPU bit for bit; bf16 output max abs {err:.3e} of max |ref| (<= {INT8_OUT_TOL:.3e});"
+            f" QConv2d {int8_ms:.4f} ms vs bf16 cuDNN conv {bf16_ms:.4f} ms (events) | {smi}")
+
+    # the full-width int8 UNet, B=2: card against CPU, and against the card's bf16 UNet
+    state = q.quantize_unet_state(unet_weights)
+    cpu_unet = int8_unet(state, "cpu", torch.float32)
+    card_unet = int8_unet({k: v.cuda() for k, v in state.items()}, "cuda", torch.bfloat16)
+    n = sum(isinstance(m, q.QConv2d) for m in card_unet.modules())
+    if n != n_qconv:
+        fail(f"int8 UNet: {n} QConv2d, the CLI run launched {n_qconv} int8 GEMMs per eval")
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 32, 32, 8, generator=gen)
+    t = torch.tensor([977, 421])
+    ctx = torch.randn(2, 1, 768, generator=gen)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu_unet(x, t, ctx)
+    cpu_s = time.perf_counter() - t0
+    del cpu_unet
+    flash_attention.launch_count = q.int8_matmul.launch_count = 0
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda mod, a: calls.append((mod, a[0].cpu())))
+             for m in card_unet.modules() if isinstance(m, q.QConv2d)]
+    try:
+        with torch.inference_mode():
+            out = card_unet(x.cuda(), t.cuda(), ctx.cuda())
+            bf16_out = stage.unet(x.cuda(), t.cuda(), ctx.cuda())
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = (flash_attention.launch_count, q.int8_matmul.launch_count)
+    rel = float(torch.linalg.vector_norm(out.cpu() - ref) / torch.linalg.vector_norm(ref))
+    qerr = float(torch.linalg.vector_norm(out - bf16_out) / torch.linalg.vector_norm(bf16_out))
+    if not torch.isfinite(out).all() or rel > INT8_UNET_TOL:
+        fail(f"int8 UNet card vs CPU: relative L2 {rel} (<= {INT8_UNET_TOL})")
+    if launches != (32, n) or len(calls) != n:
+        fail(f"int8 UNet + bf16 UNet: K1 / int8 GEMM launches {launches}, expected (32, {n}); "
+             f"{len(calls)} int8 layer calls")
+    # every int8 layer of the card's eval, replayed on the CPU from its input
+    cpu_twin = {}
+    for module, xin in calls:
+        if module not in cpu_twin:
+            twin = q.QConv2d(module.in_channels, module.out_channels, module.kernel_size,
+                             module.stride, module.padding)
+            twin.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+            twin.dtype = torch.bfloat16
+            cpu_twin[module] = twin
+        with torch.inference_mode():
+            acc, _ = module.accumulate(xin.cuda())
+            ref_acc, _ = cpu_twin[module].accumulate(xin)
+            y, ref_y = module(xin.cuda()).float().cpu(), cpu_twin[module](xin).float()
+        if not torch.equal(acc.cpu(), ref_acc):
+            fail("int8 UNet: a layer's int32 accumulations differ card vs CPU on the card's input")
+        if float((y - ref_y).abs().max()) > INT8_OUT_TOL * float(ref_y.abs().max()):
+            fail(f"int8 UNet: a layer's bf16 output differs card vs CPU beyond {INT8_OUT_TOL}")
+    log(f"phase fast modes: full-width int8 UNet B=2 ({n} int8 convs, conv-only): each of its "
+        f"{len(calls)} int8 layer calls replayed on the CPU from the card's input, int32 "
+        f"accumulations equal bit for bit, bf16 outputs within one rounding; the whole eval card "
+        f"(bf16 compute) vs CPU (f32 compute) relative L2 {rel:.3e} (<= {INT8_UNET_TOL}); "
+        f"quantization error, card int8 vs card bf16 UNet on the same weights: relative L2 "
+        f"{qerr:.3e}; K1 launches 16 per eval; CPU eval {cpu_s:.1f} s | {smi}")
+
+    # sampler and img2img update math, card f32 against CPU f32
+    cpu_runs, card_runs = sampler_math("cpu"), sampler_math("cuda")
+    lines = []
+    for name, (ref, n_ref) in cpu_runs.items():
+        got, n_got = card_runs[name]
+        err = float(torch.linalg.vector_norm(got.cpu() - ref) / torch.linalg.vector_norm(ref))
+        if not torch.isfinite(got).all() or err > SAMPLER_TOL or n_got != n_ref:
+            fail(f"sampler math {name}: relative L2 {err} (<= {SAMPLER_TOL}), evals {n_got} / {n_ref}")
+        lines.append(f"{name}: {n_got} evals, {err:.2e}")
+    log(f"phase fast modes: sampler math at [8, 32, 32, 4], card f32 vs CPU f32 relative L2 "
+        f"(<= {SAMPLER_TOL}): " + "; ".join(lines))
+
+    # int8 and bf16 UNet evals, timed by CUDA events
+    times = []
+    for B in (8, 56):
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        xb = torch.randn(B, 32, 32, 8, device="cuda", generator=gen)
+        tb = torch.full((B,), 500, device="cuda")
+        cb = torch.randn(B, 1, 768, device="cuda", generator=gen)
+        for label, net in (("bf16", stage.unet), ("int8", card_unet)):
+            with torch.inference_mode():
+                times.append(f"B={B} {label} {time_ms(lambda: net(xb, tb, cb), 10, warmup=2):.2f}")  # noqa: B023
+    log("phase fast modes: UNet eval ms (CUDA events, 10 evals after 2): " + ", ".join(times)
+        + f" | {smi}")
+    return card_unet
+
+
+def phase_fast_modes_profile(stage, card_unet, smi):
+    """Profiled last: the kernels one card QConv2d call launches (the int8
+    GEMM present, no conv kernel), and the int8 and bf16 UNet evals' device
+    ms at B=8 and B=56 by kernel family, with the int8 GEMMs' and the
+    quantize and dequantize passes' shares (kernels placed by QConv2d's
+    profiler ranges)."""
+    import bisect
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, k, stride, padding, cin, cout in INT8_CONVS:
+        _, _, card, x = quantized_conv_pair(name, k, stride, padding, cin, cout)
+        xc = x.cuda()
+        card(xc)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            card(xc)
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        gemm = [e for e in device if e.name == "int8_gemm"]
+        kernels = [e.name for e in device if e.name not in INT8_RANGES]
+        inside = [e.name for e in device if e.name not in INT8_RANGES and gemm
+                  and gemm[0].time_range.start <= e.time_range.start < gemm[0].time_range.end]
+        integer = [n for n in inside if any(t in n.lower() for t in ("s8", "i8", "imma", "int8"))]
+        if not integer or any(("conv" in n.lower() or "cudnn" in n.lower()) for n in kernels):
+            fail(f"int8 conv {name}: no integer GEMM in the int8_gemm range ({inside}), or a conv "
+                 f"kernel ran: {kernels}")
+        log(f"phase fast modes profile: int8 conv {name}: {len(kernels)} kernels, of which the "
+            f"int8 GEMM: {inside}; no conv kernel")
+
+    for B in (8, 56):
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        xb = torch.randn(B, 32, 32, 8, device="cuda", generator=gen)
+        tb = torch.full((B,), 500, device="cuda")
+        cb = torch.randn(B, 1, 768, device="cuda", generator=gen)
+        for label, net in (("bf16", stage.unet), ("int8", card_unet)):
+            with torch.inference_mode():
+                device_ms, _ = device_ms_per_call(lambda: net(xb, tb, cb), 3, INT8_RANGES)  # noqa: B023
+                wall_ms, events, _ = profiled(lambda: net(xb, tb, cb))  # noqa: B023
+            ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                            if e.name in INT8_RANGES)
+            starts = [r[0] for r in ranges]
+            families, shares = {}, dict.fromkeys(INT8_RANGES, 0.0)
+            for e in events:
+                if e.name in INT8_RANGES:
+                    continue
+                ms = (e.time_range.end - e.time_range.start) / 1e3
+                families[kernel_family(e.name)] = families.get(kernel_family(e.name), 0.0) + ms
+                i = bisect.bisect_right(starts, e.time_range.start) - 1
+                if i >= 0 and e.time_range.start < ranges[i][1]:
+                    shares[ranges[i][2]] += ms
+            total = sum(families.values())
+            busy = busy_ms([e for e in events if e.name not in INT8_RANGES])
+            log(f"phase fast modes profile: UNet eval B={B} {label}: device {device_ms:.2f} ms per "
+                f"eval (3 evals), profiled eval wall {wall_ms:.1f} ms, busy {busy / wall_ms:.3f} | "
+                + (", ".join(f"{r} {v:.2f} ms ({v / total:.3f})" for r, v in shares.items())
+                   + " | " if label == "int8" else "")
+                + f"by family (ms): {by_family(families)} | {smi}")
 
 
 def phase_sam_profile(stage, rgb, smi):
@@ -1915,13 +2300,17 @@ def main() -> int:
     del s2
     phase_pipeline(params, recon_p, loftr_w, smi)
     sam_stage, sam_w, sam_image = phase_preprocess(params, smi)
-    launches = phase_cli({"zero123": params, "recon": recon_p, "loftr": loftr_w}, sam_w, smi)
-    del sam_w
+    stages = {"zero123": params, "recon": recon_p, "loftr": loftr_w}
+    cli_run_ddim = phase_cli(stages, sam_w, smi)
+    launches = cli_run_ddim[2]
+    card_int8_unet = phase_fast_modes(stage, unet_weights, stages, sam_w, cli_run_ddim, smi)
+    del sam_w, cli_run_ddim
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
     phase_device_times(rows, bwd_rows)
     phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
     phase_elevation_profile(estimator, views, smi)
     phase_sam_profile(sam_stage, sam_image, smi)
+    phase_fast_modes_profile(stage, card_int8_unet, smi)
 
     def json_bound_by(by: str) -> str:
         # the line names two kinds of bound: the exp unit's rate is a peak

@@ -58,7 +58,8 @@ class UNetConfig(_ConfigBase):
     transformer_depth: int = 1
     context_dim: int = 768
     dtype: str = "bfloat16"
-    # 'none' only: the int8 fast mode of the JAX package is not ported yet
+    # 'none' or 'int8': the W8A8 int8 UNet, conv-only (diffusion/quantize.py);
+    # inference only, its state derived from the f32 one
     quant: str = "none"
 
 
@@ -101,7 +102,8 @@ class DiffusionConfig(_ConfigBase):
     ddim_steps_stage1: int = 75
     ddim_steps_stage2: int = 50
     ddim_eta: float = 1.0
-    # 'ddim' only: the plms / dpmpp samplers are not ported yet
+    # 'ddim' (the original's), 'plms' or 'dpmpp' (DPM-Solver++(2M), a fast
+    # mode: the CLI runs it at 30 / 25 steps); plms and dpmpp run at eta 0
     sampler: str = "ddim"
     cfg_scale: float = 3.0
     image_size: int = 256

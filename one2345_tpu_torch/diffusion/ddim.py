@@ -46,3 +46,12 @@ def trim_for_sample(sched: DDIMSchedule) -> DDIMSchedule:
     does (its ``t_start=-1`` slice): S schedule entries run S-1 UNet steps,
     so S=75 -> 77 entries -> 76 steps from t=977."""
     return DDIMSchedule(*(np.asarray(a)[1:] for a in sched.arrays), trimmed=True)
+
+
+def truncate_schedule(sched: DDIMSchedule, t_start: int) -> DDIMSchedule:
+    """The last ``t_start`` sampling steps of ``sched`` (the first
+    ``t_start`` ascending steps, flipped: decode's ``timesteps[:t_start]``)."""
+    if not (1 <= t_start <= sched.num_steps):
+        raise ValueError(f"t_start must be in [1, {sched.num_steps}], got {t_start}")
+    sl = slice(sched.num_steps - t_start, None)
+    return DDIMSchedule(*(np.asarray(a)[sl] for a in sched.arrays), trimmed=sched.trimmed)

@@ -17,6 +17,12 @@ so ``utils/convert_jax.py`` maps the flax parameter tree mechanically.
   backward pass (``torch.utils.checkpoint``), as ``UNetModel.remat`` of the
   JAX package does with ``nn.remat``: the same gradients for less
   activation memory.
+- ``quant=True`` builds the W8A8 int8 UNet (``diffusion/quantize.py``): the
+  layers the JAX package routes through ``q.conv`` / ``q.dense`` become
+  ``QConv2d`` / ``QLinear`` unless ``SKIP_QUANT`` names them, which leaves
+  the int8 convs of the ResBlocks, the transformers' 1x1 projections and
+  the down / up convs.  Inference only; its state comes from
+  ``quantize_unet_state``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from one2345_tpu_torch.diffusion import quantize as q
 from one2345_tpu_torch.diffusion.schedule import timestep_embedding
 from one2345_tpu_torch.ops.flash_attention import flash_attention
 
@@ -61,24 +68,27 @@ class LayerNorm32(nn.LayerNorm):
 def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast the conv / linear weights of ``module`` to the compute dtype;
     norms and free parameters (CLIP embeddings, projections) stay f32, as
-    the JAX modules keep f32 params and cast at use."""
+    the JAX modules keep f32 params and cast at use.  The int8 layers keep
+    their weights and f32 scales and output the compute dtype."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
+        elif isinstance(m, (q.QConv2d, q.QLinear)):
+            m.dtype = dtype
     return module
 
 
 class ResBlock(nn.Module):
     """norm -> silu -> conv, + time embedding, norm -> silu -> conv, skip."""
 
-    def __init__(self, cin: int, cout: int, emb_dim: int):
+    def __init__(self, cin: int, cout: int, emb_dim: int, quant: bool = False):
         super().__init__()
         self.in_norm = GroupNorm32(cin)
-        self.in_conv = nn.Conv2d(cin, cout, 3, padding=1)
-        self.emb_proj = nn.Linear(emb_dim, cout)
+        self.in_conv = q.conv(quant, "in_conv", cin, cout, 3, padding=1)
+        self.emb_proj = q.dense(quant, "emb_proj", emb_dim, cout)
         self.out_norm = GroupNorm32(cout)
-        self.out_conv = nn.Conv2d(cout, cout, 3, padding=1)
-        self.skip = nn.Conv2d(cin, cout, 1) if cin != cout else None
+        self.out_conv = q.conv(quant, "out_conv", cout, cout, 3, padding=1)
+        self.skip = q.conv(quant, "skip", cin, cout, 1) if cin != cout else None
 
     def forward(self, x, emb):
         h = self.in_conv(F.silu(self.in_norm(x)))
@@ -93,14 +103,15 @@ class Attention(nn.Module):
     """Multi-head attention over tokens [B, T, C]; self-attention when
     ``context`` is None, cross-attention otherwise."""
 
-    def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int):
+    def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
+                 quant: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, query_dim)
+        self.to_q = q.dense(quant, "to_q", query_dim, inner, bias=False)
+        self.to_k = q.dense(quant, "to_k", context_dim, inner, bias=False)
+        self.to_v = q.dense(quant, "to_v", context_dim, inner, bias=False)
+        self.to_out = q.dense(quant, "to_out", inner, query_dim)
 
     def forward(self, x, context=None):
         ctx = x if context is None else context
@@ -120,9 +131,9 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, dim_out: int):
+    def __init__(self, dim: int, dim_out: int, quant: bool = False):
         super().__init__()
-        self.proj = nn.Linear(dim, dim_out * 2)
+        self.proj = q.dense(quant, "proj", dim, dim_out * 2)
 
     def forward(self, x):
         a, g = self.proj(x).chunk(2, dim=-1)
@@ -133,16 +144,16 @@ class GEGLU(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn -> GEGLU FF, pre-LN residuals."""
 
-    def __init__(self, dim: int, context_dim: int, heads: int):
+    def __init__(self, dim: int, context_dim: int, heads: int, quant: bool = False):
         super().__init__()
         dh = dim // heads
         self.norm1 = LayerNorm32(dim)
-        self.attn1 = Attention(dim, dim, heads, dh)
+        self.attn1 = Attention(dim, dim, heads, dh, quant)
         self.norm2 = LayerNorm32(dim)
-        self.attn2 = Attention(dim, context_dim, heads, dh)
+        self.attn2 = Attention(dim, context_dim, heads, dh, quant)
         self.norm3 = LayerNorm32(dim)
-        self.ff_geglu = GEGLU(dim, dim * 4)
-        self.ff_out = nn.Linear(dim * 4, dim)
+        self.ff_geglu = GEGLU(dim, dim * 4, quant)
+        self.ff_out = q.dense(quant, "ff_out", dim * 4, dim)
 
     def forward(self, x, context):
         dt = x.dtype
@@ -155,14 +166,15 @@ class BasicTransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     """GroupNorm -> 1x1 proj -> transformer blocks -> zero 1x1 proj, residual."""
 
-    def __init__(self, channels: int, context_dim: int, heads: int, depth: int):
+    def __init__(self, channels: int, context_dim: int, heads: int, depth: int,
+                 quant: bool = False):
         super().__init__()
         self.norm = GroupNorm32(channels)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = q.conv(quant, "proj_in", channels, channels, 1)
         self.depth = depth
         for i in range(depth):
-            setattr(self, f"block{i}", BasicTransformerBlock(channels, context_dim, heads))
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+            setattr(self, f"block{i}", BasicTransformerBlock(channels, context_dim, heads, quant))
+        self.proj_out = q.conv(quant, "proj_out", channels, channels, 1)
 
     def forward(self, x, context):
         B, C, H, W = x.shape
@@ -174,19 +186,19 @@ class SpatialTransformer(nn.Module):
 
 
 class Downsample(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quant: bool = False):
         super().__init__()
         # symmetric (1, 1) padding, stride 2
-        self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.op = q.conv(quant, "op", channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.op(x)
 
 
 class Upsample(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quant: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = q.conv(quant, "conv", channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -205,18 +217,19 @@ class UNetModel(nn.Module):
         transformer_depth: int = 1,
         context_dim: int = 768,
         remat: bool = False,
+        quant: bool = False,
     ):
         super().__init__()
         mc = model_channels
         self.remat = remat
         emb_dim = mc * 4
         self.model_channels = mc
-        self.time_embed_0 = nn.Linear(mc, emb_dim)
-        self.time_embed_2 = nn.Linear(emb_dim, emb_dim)
-        self.conv_in = nn.Conv2d(in_channels, mc, 3, padding=1)
+        self.time_embed_0 = q.dense(quant, "time_embed_0", mc, emb_dim)
+        self.time_embed_2 = q.dense(quant, "time_embed_2", emb_dim, emb_dim)
+        self.conv_in = q.conv(quant, "conv_in", in_channels, mc, 3, padding=1)
 
         def attn(ch):
-            return SpatialTransformer(ch, context_dim, num_heads, transformer_depth)
+            return SpatialTransformer(ch, context_dim, num_heads, transformer_depth, quant)
 
         # (kind, name) in execution order; kind in res/attn/down/up/push/pop
         self._plan = []
@@ -224,7 +237,7 @@ class UNetModel(nn.Module):
         ch, ds = mc, 1
         for level, mult in enumerate(channel_mult):
             for i in range(num_res_blocks):
-                setattr(self, f"in_{level}_{i}_res", ResBlock(ch, mc * mult, emb_dim))
+                setattr(self, f"in_{level}_{i}_res", ResBlock(ch, mc * mult, emb_dim, quant))
                 ch = mc * mult
                 self._plan.append(("res", f"in_{level}_{i}_res"))
                 if ds in attention_resolutions:
@@ -233,39 +246,39 @@ class UNetModel(nn.Module):
                 self._plan.append(("push", None))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                setattr(self, f"down_{level}", Downsample(ch))
+                setattr(self, f"down_{level}", Downsample(ch, quant))
                 self._plan += [("mod", f"down_{level}"), ("push", None)]
                 chans.append(ch)
                 ds *= 2
-        self.mid_res1 = ResBlock(ch, ch, emb_dim)
+        self.mid_res1 = ResBlock(ch, ch, emb_dim, quant)
         self.mid_attn = attn(ch)
-        self.mid_res2 = ResBlock(ch, ch, emb_dim)
+        self.mid_res2 = ResBlock(ch, ch, emb_dim, quant)
         self._plan += [("res", "mid_res1"), ("attn", "mid_attn"), ("res", "mid_res2")]
         for level, mult in reversed(list(enumerate(channel_mult))):
             for i in range(num_res_blocks + 1):
                 skip = chans.pop()
-                setattr(self, f"out_{level}_{i}_res", ResBlock(ch + skip, mc * mult, emb_dim))
+                setattr(self, f"out_{level}_{i}_res",
+                        ResBlock(ch + skip, mc * mult, emb_dim, quant))
                 ch = mc * mult
                 self._plan += [("pop", None), ("res", f"out_{level}_{i}_res")]
                 if ds in attention_resolutions:
                     setattr(self, f"out_{level}_{i}_attn", attn(ch))
                     self._plan.append(("attn", f"out_{level}_{i}_attn"))
             if level != 0:
-                setattr(self, f"up_{level}", Upsample(ch))
+                setattr(self, f"up_{level}", Upsample(ch, quant))
                 self._plan.append(("mod", f"up_{level}"))
                 ds //= 2
         self.out_norm = GroupNorm32(mc)
-        self.conv_out = nn.Conv2d(mc, out_channels, 3, padding=1)
+        self.conv_out = q.conv(quant, "conv_out", mc, out_channels, 3, padding=1)
 
-        for m in self.modules():  # zero-initialised outputs, as in the JAX module
-            if isinstance(m, ResBlock):
-                nn.init.zeros_(m.out_conv.weight)
-                nn.init.zeros_(m.out_conv.bias)
-            elif isinstance(m, SpatialTransformer):
-                nn.init.zeros_(m.proj_out.weight)
-                nn.init.zeros_(m.proj_out.bias)
-        nn.init.zeros_(self.conv_out.weight)
-        nn.init.zeros_(self.conv_out.bias)
+        # zero-initialised outputs, as in the JAX module (int8 layers come
+        # from a quantized f32 state)
+        outs = [m.out_conv for m in self.modules() if isinstance(m, ResBlock)]
+        outs += [m.proj_out for m in self.modules() if isinstance(m, SpatialTransformer)]
+        for m in outs + [self.conv_out]:
+            if isinstance(m, nn.Conv2d):
+                nn.init.zeros_(m.weight)
+                nn.init.zeros_(m.bias)
 
     def forward(self, x, timesteps, context):
         """

@@ -1,6 +1,6 @@
 """Zero123 view-conditioned sampling — the multi-view stage of image -> mesh.
 
-Counterpart of ``one2345_tpu/diffusion/zero123.py`` (DDIM sampler only):
+Counterpart of ``one2345_tpu/diffusion/zero123.py``:
 
 - conditioning: CLIP image token ++ (radians dx, sin dy, cos dy, 0) pose
   token -> CCProjection Linear(772 -> 768); the concat conditioning is the
@@ -8,7 +8,14 @@ Counterpart of ``one2345_tpu/diffusion/zero123.py`` (DDIM sampler only):
 - classifier-free guidance runs uncond-first in one double batch, with
   ZERO unconditional context and concat latent;
 - all views of a stage sample in one batch (stage 2: 4 nearby views per
-  stage-1 view, 28 views for the 7 views after view 0).
+  stage-1 view, 28 views for the 7 views after view 0);
+- samplers (``DiffusionConfig.sampler`` or ``sample_views(sampler=)``):
+  'ddim' over the trimmed schedule at the config's eta, as the original
+  ``DDIMSampler.sample``; 'plms' and 'dpmpp' over the untrimmed eta=0
+  schedule (S entries: S + 1 and S UNet evals), from noise draw 0 only;
+- ``UNetConfig.quant="int8"``: the UNet is built in f32, loaded (or
+  seeded), and replaced by the int8 UNet of its quantized state
+  (``diffusion/quantize.py``); an already quantized state loads as it is.
 
 Noise: every view's noise comes from its own ``torch.Generator`` on the
 stage's device, seeded from (seed, view id, draw index), so a view's noise
@@ -28,6 +35,9 @@ from one2345_tpu_torch.core.config import DiffusionConfig, UNetConfig
 from one2345_tpu_torch.core.device import resolve_device
 from one2345_tpu_torch.diffusion.clip import CLIPVisionTower, preprocess_for_clip
 from one2345_tpu_torch.diffusion.ddim import ddim_sample, trim_for_sample
+from one2345_tpu_torch.diffusion.dpm_solver import dpmpp_sample
+from one2345_tpu_torch.diffusion.plms import plms_sample
+from one2345_tpu_torch.diffusion.quantize import is_quantized, quantize_unet_state
 from one2345_tpu_torch.diffusion.schedule import DDIMSchedule, make_ddim_schedule
 from one2345_tpu_torch.diffusion.unet import UNetModel, cast_compute
 from one2345_tpu_torch.diffusion.vae import Decoder, Encoder, moments_mode
@@ -43,6 +53,8 @@ STAGE2_DELTA_X = [-10.0, 10.0, 0.0, 0.0]
 STAGE2_DELTA_Y = [0.0, 0.0, -10.0, 10.0]
 # the stage's modules: the keys of ``params``
 MODULES = ("unet", "encoder", "decoder", "clip", "cc_projection")
+SAMPLERS = ("ddim", "plms", "dpmpp")
+QUANT_MODES = ("none", "int8")
 
 
 def pose_tokens(delta_x_deg, delta_y_deg) -> np.ndarray:
@@ -67,8 +79,9 @@ class CCProjection(nn.Module):
         return x @ self.kernel + self.bias
 
 
-def make_unet(u: UNetConfig, remat: bool = False) -> UNetModel:
-    """The UNet of a config, built on the current default device."""
+def make_unet(u: UNetConfig, remat: bool = False, quant: bool = False) -> UNetModel:
+    """The UNet of a config (f32 unless ``quant``: the int8 UNet), built
+    on the current default device."""
     return UNetModel(
         in_channels=u.in_channels,
         out_channels=u.out_channels,
@@ -80,6 +93,7 @@ def make_unet(u: UNetConfig, remat: bool = False) -> UNetModel:
         transformer_depth=u.transformer_depth,
         context_dim=u.context_dim,
         remat=remat,
+        quant=quant,
     )
 
 
@@ -96,7 +110,8 @@ class Zero123Stage:
         'cc_projection' (``utils.convert_jax.zero123_from_jax`` makes them
         from the JAX parameter tree), loaded with ``strict=True``; None ->
         modules initialised from ``seed`` (zero-initialised outputs, like
-        the JAX init)
+        the JAX init).  With ``quant="int8"`` the 'unet' state is f32 or
+        already quantized.
     :param device: None -> 'cuda' (raises without CUDA)
     """
 
@@ -104,10 +119,10 @@ class Zero123Stage:
                  device=None):
         self.config = cfg = config or DiffusionConfig()
         self.device = resolve_device(device)
-        if cfg.unet.quant != "none":
-            raise ValueError(f"UNetConfig.quant {cfg.unet.quant!r} is not ported: use 'none'")
-        if cfg.sampler != "ddim":
-            raise ValueError(f"sampler {cfg.sampler!r} is not ported: use 'ddim'")
+        if cfg.unet.quant not in QUANT_MODES:
+            # a typo ('INT8', 'w8a8') must not run the bf16 path
+            raise ValueError(f"UNetConfig.quant must be 'none' or 'int8', got {cfg.unet.quant!r}")
+        self.quant = cfg.unet.quant == "int8"
         self.dtype = torch.bfloat16 if cfg.unet.dtype == "bfloat16" else torch.float32
         self.scale_factor = cfg.vae.scale_factor
         # modules are built on their device, from their own seed, leaving
@@ -133,13 +148,28 @@ class Zero123Stage:
                 embed_dim=cfg.clip.embed_dim,
             )
             self.cc_projection = CCProjection(cfg.clip.embed_dim + 4, cfg.unet.context_dim)
+        if self.quant:
+            self.unet = self._int8_unet(params["unet"] if params is not None else None)
         for name in MODULES:
             module = getattr(self, name)
-            if params is not None:
+            if params is not None and not (name == "unet" and self.quant):
                 module.load_state_dict(params[name], strict=True)
             module.requires_grad_(False).eval()
             if name != "cc_projection":  # the JAX CCProjection runs in f32
                 cast_compute(module, self.dtype)
+
+    def _int8_unet(self, state) -> UNetModel:
+        """The int8 UNet of the f32 UNet just built (seeded), of an f32
+        state, or of an already quantized state; the f32 UNet is dropped."""
+        if state is None or not is_quantized(state):
+            if state is not None:
+                self.unet.load_state_dict(state, strict=True)
+            state = quantize_unet_state(self.unet.state_dict())
+        with torch.device("meta"):
+            unet = make_unet(self.config.unet, quant=True)
+        unet = unet.to_empty(device=self.device)
+        unet.load_state_dict(state, strict=True)
+        return unet
 
     # ------------------------------------------------------------- sampling
     def _schedule(self, steps: int) -> DDIMSchedule:
@@ -176,17 +206,24 @@ class Zero123Stage:
     @torch.inference_mode()
     def sample_views(self, cond_images, delta_x_deg, delta_y_deg, seed: int,
                      steps: int | None = None, cfg_scale: float | None = None,
-                     noise_ids=None, noise_fn=None) -> torch.Tensor:
+                     sampler: str | None = None, noise_ids=None,
+                     noise_fn=None) -> torch.Tensor:
         """Generate B novel views in one batch: [B, 256, 256, 3] in [0, 1].
 
         :param cond_images: [B, 256, 256, 3] in [-1, 1]
+        :param sampler: 'ddim', 'plms' or 'dpmpp'; None -> config.sampler
         :param noise_ids: int per view that keys its noise (default: batch
             position)
         :param noise_fn: optional (draw, view_ids, per-view shape) -> noise
             [B, *shape], replacing the per-view generators
         """
-        cfg_scale = self.config.cfg_scale if cfg_scale is None else cfg_scale
-        steps = steps or self.config.ddim_steps_stage1
+        cfg = self.config
+        cfg_scale = cfg.cfg_scale if cfg_scale is None else cfg_scale
+        steps = steps or cfg.ddim_steps_stage1
+        sampler = sampler or cfg.sampler
+        if sampler not in SAMPLERS:
+            # a typo must not run another sampler
+            raise ValueError(f"unknown sampler {sampler!r}: ddim|plms|dpmpp")
         cond = torch.as_tensor(cond_images, dtype=torch.float32, device=self.device)
         B = cond.shape[0]
         ids = list(range(B)) if noise_ids is None else [int(i) for i in noise_ids]
@@ -214,7 +251,11 @@ class Zero123Stage:
             return e_uc + cfg_scale * (e_c - e_uc)
 
         x = draw_noise(0, (L, L, zc))
-        x = ddim_sample(eps_fn, x, self._schedule(steps), lambda d, s: draw_noise(d, s[1:]))
+        if sampler == "ddim":
+            x = ddim_sample(eps_fn, x, self._schedule(steps), lambda d, s: draw_noise(d, s[1:]))
+        else:
+            sched = make_ddim_schedule(steps, cfg.timesteps, 0.0, cfg.linear_start, cfg.linear_end)
+            x = (plms_sample if sampler == "plms" else dpmpp_sample)(eps_fn, x, sched)
         imgs = self.decoder(x / self.scale_factor)
         return torch.clamp((imgs + 1.0) / 2.0, 0.0, 1.0)
 

@@ -6,9 +6,10 @@
 Counterpart of ``one2345_tpu/pipeline/cli.py`` with the same flags.  The
 input is read with the port's PNG reader (``utils.png``) and converted to
 RGBA; ``--params`` names a ``core.checkpoint`` file (the tree
-``One2345Pipeline.save_params`` writes).  ``--sampler plms|dpmpp`` and
-``--quant int8`` are not ported yet and raise.  The JAX CLI's XLA compile
-cache has no counterpart here.
+``One2345Pipeline.save_params`` writes).  The fast modes stack:
+``--sampler dpmpp`` (DPM-Solver++(2M), 30 / 25 steps unless ``--steps``
+says otherwise), ``--sampler plms``, and ``--quant int8`` (the W8A8 int8
+UNet).  The JAX CLI's XLA compile cache has no counterpart here.
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ import argparse
 import json
 import os
 import time
-
-NOT_PORTED = "is not ported yet (ROADMAP §1 item 10)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,29 +34,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_sam", action="store_true", help="alpha/threshold segmentation instead of SAM")
     # extensions beyond run.py's flag surface
     p.add_argument("--sampler", choices=["ddim", "plms", "dpmpp"], default="ddim",
-                   help=f"plms and dpmpp {NOT_PORTED}")
+                   help="dpmpp = DPM-Solver++(2M) fast mode (defaults to --steps 30 25)")
     p.add_argument("--steps", type=int, nargs=2, default=None, metavar=("S1", "S2"),
                    help="override stage-1/stage-2 REQUESTED denoising step counts "
-                        "(reference defaults: 75 50, run as 76 and 49)")
+                        "(reference defaults: 75 50, run by DDIM as 76 and 49)")
     p.add_argument("--quant", choices=["none", "int8"], default="none",
-                   help=f"int8 (the W8A8 UNet) {NOT_PORTED}")
+                   help="int8 = the W8A8 int8 UNet (conv-only; stacks with --sampler)")
     return p
 
 
 def apply_fast_modes(cfg, sampler="ddim", steps=None, quant="none"):
-    """Overlay the opt-in fast-mode knobs on a PipelineConfig: only
-    ``steps`` (REQUESTED counts) for DDIM; the other samplers and the int8
-    UNet raise ``NotImplementedError``."""
+    """Overlay the opt-in fast-mode knobs on a PipelineConfig.
+
+    ``steps`` are REQUESTED counts (the schedule of 75 has 77 entries, of
+    which DDIM runs 76).  ``steps`` of None keeps the reference's (75, 50)
+    for ddim and plms and takes (30, 25) for dpmpp.  An unknown sampler or
+    quant mode raises ``ValueError``."""
     if sampler not in ("ddim", "plms", "dpmpp"):
         raise ValueError(f"unknown sampler {sampler!r}: ddim|plms|dpmpp")
-    if sampler != "ddim":
-        raise NotImplementedError(f"--sampler {sampler} {NOT_PORTED}")
-    if quant != "none":
-        raise NotImplementedError(f"--quant {quant} {NOT_PORTED}")
+    if quant not in ("none", "int8"):
+        raise ValueError(f"unknown quant mode {quant!r}: none|int8")
+    if steps is None and sampler == "dpmpp":
+        steps = (30, 25)
+    d = cfg.diffusion.replace(sampler=sampler)
     if steps:
-        cfg = cfg.replace(diffusion=cfg.diffusion.replace(
-            ddim_steps_stage1=steps[0], ddim_steps_stage2=steps[1]))
-    return cfg
+        d = d.replace(ddim_steps_stage1=steps[0], ddim_steps_stage2=steps[1])
+    return cfg.replace(diffusion=d.replace(unet=d.unet.replace(quant=quant)))
 
 
 def build_config(args):

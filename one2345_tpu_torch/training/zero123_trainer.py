@@ -77,6 +77,12 @@ class Zero123Trainer:
     def __init__(self, stage, params, ema_decay: float = 0.9999, base_lr: float = 1e-4,
                  remat: bool = True, device=None, seed: int = 0):
         self.device = resolve_device(device)
+        if getattr(stage, "quant", False):
+            raise ValueError(
+                "Zero123Trainer needs an f32 param tree: construct the stage "
+                "with UNetConfig.quant='none' (int8 is an inference-only fast "
+                "mode, diffusion/quantize.py)"
+            )
         if stage.device != self.device:
             raise ValueError(f"stage on {stage.device}, trainer on {self.device}")
         self.stage = stage

@@ -15,6 +15,10 @@ mechanical:
   the norm wrappers is dropped;
 - conv kernels HWIO -> OIHW and DHWIO -> OIDHW; Dense kernels (in, out) ->
   Linear weight (out, in); norm 'scale' -> 'weight';
+- the int8 UNet's 'kernel_q' (int8, kept int8) is laid out as 'kernel' is
+  and named 'weight_q'; its 'kernel_scale' (f32 [out]) becomes
+  'weight_scale', so a JAX ``quantize_unet_params`` tree loads into
+  ``UNetModel(quant=True)``;
 - the 'batch_stats' collection: 'mean' -> 'running_mean', 'var' ->
   'running_var';
 - flax ``ConvTranspose`` kernels (SAM's ``upscale_conv1/2``) apply without
@@ -61,14 +65,16 @@ def flax_to_state_dict(variables: Mapping, free=()) -> dict:
     for path, leaf, stat in leaves:
         scope = [p for p in path[:-1] if not _NORM_SCOPE.fullmatch(p)]
         name = path[-1]
-        a = np.asarray(leaf, dtype=np.float32)
+        a = np.asarray(leaf, dtype=np.int8 if name == "kernel_q" else np.float32)
         if stat:
             name = _STATS[name]
         elif name in free and not scope:
             pass
-        elif name == "kernel":
+        elif name in ("kernel", "kernel_q"):
             a = a.transpose(_KERNEL_AXES[a.ndim]) if a.ndim in _KERNEL_AXES else a.T
-            name = "weight"
+            name = name.replace("kernel", "weight")
+        elif name == "kernel_scale":
+            name = "weight_scale"
         elif name == "scale":
             name = "weight"
         out[".".join(scope + [name])] = torch.from_numpy(np.array(a, order="C"))

@@ -132,3 +132,33 @@ def test_tiny_sam_stage_matches_cpu(cuda_device):
                        resample.cv2_resize_linear(img, (128, 102), device="cpu"))
     assert (image.thumbnail(big, 512, device=cuda_device)
             == image.thumbnail(big, 512, device="cpu")).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,padding,cin,cout,hw", [
+    (3, 1, 1, 640, 640, 32), (1, 1, 0, 640, 320, 32), (3, 2, 1, 320, 320, 32), (3, 1, 1, 2560, 1280, 4),
+])
+def test_int8_conv_matches_cpu_on_card(k, stride, padding, cin, cout, hw, cuda_device):
+    """QConv2d at UNet widths: the card's int8 GEMM (torch._int_mm) against
+    the CPU's exact plain version on the same codes: the int32
+    accumulations equal, the bf16 outputs within one bf16 rounding."""
+    from one2345_tpu_torch.diffusion.quantize import QConv2d, int8_matmul
+
+    gen = torch.Generator().manual_seed(cin + cout + k)
+    conv = torch.nn.Conv2d(cin, cout, k, stride=stride, padding=padding)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) / (k * k * cin) ** 0.5)
+    cpu = QConv2d.from_float(conv)
+    card = QConv2d.from_float(conv).to(cuda_device)
+    card.dtype = cpu.dtype = torch.bfloat16
+    x = torch.randn(8, cin, hw, hw, generator=gen).bfloat16()
+    before = int8_matmul.launch_count
+    acc, xs = card.accumulate(x.to(cuda_device))
+    out = card(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert int8_matmul.launch_count == before + 2
+    ref_acc, ref_xs = cpu.accumulate(x)
+    assert acc.dtype == torch.int32 and torch.equal(acc.cpu(), ref_acc)
+    assert torch.equal(xs.cpu(), ref_xs)
+    ref = cpu(x).float()
+    assert max_err(out.float().cpu(), ref) <= 2 ** -8 * float(ref.abs().max())

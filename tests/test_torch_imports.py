@@ -67,6 +67,10 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.pipeline.cli",
         "one2345_tpu_torch.pipeline.api",
         "one2345_tpu_torch.pipeline.server",
+        "one2345_tpu_torch.diffusion.plms",
+        "one2345_tpu_torch.diffusion.dpm_solver",
+        "one2345_tpu_torch.diffusion.img2img",
+        "one2345_tpu_torch.diffusion.quantize",
     ):
         assert module in report["modules"]
     leaked = [

@@ -140,16 +140,23 @@ def test_estimate_elevation_falls_back_on_none_only():
 
 
 def test_what_is_not_ported_raises():
-    """Preprocessing, SAM and the safety gate are ported; the fast modes
-    of the JAX CLI (the PLMS and DPM-Solver++ samplers, the int8 UNet) are
-    not, and say so."""
+    """Preprocessing, SAM, the safety gate and the fast modes of the JAX
+    CLI (the PLMS and DPM-Solver++ samplers, the int8 UNet) are ported: each
+    mode lands on the config as the JAX CLI puts it there; a mode that
+    exists in neither package raises."""
+    from one2345_tpu.pipeline import cli as jax_cli
     from one2345_tpu_torch.pipeline import cli
 
     pipe = runner.One2345Pipeline(device="cpu")
     assert pipe.use_sam and not pipe.check_safety(np.ones((8, 8, 3), np.uint8))
     for mode in (dict(sampler="plms"), dict(sampler="dpmpp"), dict(quant="int8")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            cli.apply_fast_modes(config.PipelineConfig(), **mode)
+        out = cli.apply_fast_modes(config.PipelineConfig(), **mode)
+        ref = jax_cli.apply_fast_modes(jax_config.PipelineConfig(), **mode)
+        assert json.loads(out.to_json()) == json.loads(ref.to_json()), mode
+    with pytest.raises(ValueError, match="unknown sampler"):
+        cli.apply_fast_modes(config.PipelineConfig(), sampler="dpm++")
+    with pytest.raises(ValueError, match="unknown quant"):
+        cli.apply_fast_modes(config.PipelineConfig(), quant="INT8")
 
 
 def test_config_copies_match_jax():
@@ -382,3 +389,60 @@ def test_phase_seeds_are_distinct_and_repeatable():
     assert set(a) == set(runner.PHASES) and len(set(a.values())) == 4
     assert a == runner.phase_seeds(0) and a != b
     assert isinstance(torch.Generator().manual_seed(a["stage1"]), torch.Generator)
+
+
+# The int8 run: a code that flips at a rounding tie moves the run by the
+# int8 error itself (tests/test_torch_zero123.py), so its stage images are
+# held by their mean absolute difference, within the order of the JAX
+# runner's own int8 run's distance from its f32 run.
+FAST_INT8_MEAN_TOL = 0.05
+
+
+def _fast_jax_runner(jpipe, quant: str):
+    """The JAX runner of ``pipes`` with --sampler dpmpp (and --quant), its
+    compiled recon stage reused."""
+    d = jpipe.config.diffusion.replace(sampler="dpmpp")
+    cfg = jpipe.config.replace(diffusion=d.replace(unet=d.unet.replace(quant=quant)))
+    fast = jax_runner.One2345Pipeline(cfg, params={"zero123": jpipe.zero123.params},
+                                      use_sam=False, auto_mesh=False)
+    fast._recon = jpipe.recon
+    fast.estimate_elevation = lambda views: POLAR
+    return fast
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_fast_modes_run_matches_the_jax_runner(pipes, tmp_path, quant):
+    """One tiny run with --sampler dpmpp (--steps 2 2), and with --quant
+    int8, on both runners: the f32 weights of ``pipes`` (each side
+    quantizes them), the JAX noise injected (dpmpp takes draw 0 of each
+    phase), the recon stages of ``pipes``."""
+    from one2345_tpu_torch.diffusion.quantize import QConv2d
+    from one2345_tpu_torch.pipeline.cli import apply_fast_modes
+
+    jpipe, pipe = pipes
+    with jax.default_matmul_precision("highest"):
+        jfast = _fast_jax_runner(jpipe, quant)
+        ref = jfast.run(_input_image(), seed=0, skip_preprocess=True)
+    pcfg = apply_fast_modes(pipe.config, sampler="dpmpp", steps=(2, 2), quant=quant)
+    assert pcfg.diffusion.sampler == "dpmpp" and pcfg.diffusion.unet.quant == quant
+    fast = runner.One2345Pipeline(pcfg, params={"zero123": zero123_from_jax(jpipe.zero123.params)},
+                                  use_sam=False, device="cpu")
+    fast._recon = pipe.recon
+    fast.estimate_elevation = lambda views: POLAR
+    out = fast.run(_input_image(), seed=0, skip_preprocess=True, out_dir=str(tmp_path),
+                   noise_fn=jax_noise(jfast))
+    int8 = any(isinstance(m, QConv2d) for m in fast.zero123.unet.modules())
+    assert int8 == (quant == "int8")
+    assert out.elevation == ref.elevation and set(out.timings) == set(ref.timings)
+    s2 = np.asarray(ref.stage2_images)
+    assert float(np.mean((s2 > 0.01) & (s2 < 0.99))) > 0.2  # not saturated
+    if quant == "none":
+        assert max_err(out.stage1_images, ref.stage1_images) <= IMAGE_TOL
+        assert max_err(out.stage2_images, ref.stage2_images) <= IMAGE_TOL
+        check_mesh_against(ref, out)
+    else:
+        for name in ("stage1_images", "stage2_images"):
+            diff = np.abs(getattr(out, name).numpy() - np.asarray(getattr(ref, name)))
+            assert float(diff.mean()) <= FAST_INT8_MEAN_TOL, name
+        assert len(out.faces) > 100 and np.isfinite(out.vertices).all()
+    assert os.path.exists(tmp_path / "stage2_8" / "7_3.png") and out.mesh_path.endswith("mesh.ply")

@@ -231,10 +231,30 @@ def test_cli_runs_on_the_card_gpu_idx_names(monkeypatch):
     assert chosen == {"current": 1, "device": "cuda:1"}
 
 
-@pytest.mark.parametrize("flags", [["--sampler", "plms"], ["--sampler", "dpmpp"], ["--quant", "int8"]])
+# flags -> (sampler, quant, requested steps), as the JAX CLI sets them
+FAST_MODES = {
+    ("--sampler", "plms"): ("plms", "none", (75, 50)),
+    ("--sampler", "dpmpp"): ("dpmpp", "none", (30, 25)),  # dpmpp defaults to 30 / 25
+    ("--quant", "int8"): ("ddim", "int8", (75, 50)),  # --quant alone keeps the steps
+}
+
+
+@pytest.mark.parametrize("flags", [list(f) for f in FAST_MODES])
 def test_cli_fast_modes_are_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["--img_path", "unused.png", *flags])
-    args = cli.build_parser().parse_args(["--img_path", "x.png", "--steps", "30", "25"])
-    cfg = cli.build_config(args)
-    assert (cfg.diffusion.ddim_steps_stage1, cfg.diffusion.ddim_steps_stage2) == (30, 25)
+    """The fast-mode flags land on the config (tests/test_dpm_solver.py's
+    checks of the JAX CLI); --steps overrides any sampler's counts."""
+    from one2345_tpu.pipeline import cli as jax_cli
+
+    sampler, quant, steps = FAST_MODES[tuple(flags)]
+    cfg = cli.build_config(cli.build_parser().parse_args(["--img_path", "x.png", *flags]))
+    d = cfg.diffusion
+    assert (d.sampler, d.unet.quant, (d.ddim_steps_stage1, d.ddim_steps_stage2)) == (sampler, quant, steps)
+    ref = jax_cli.build_config(jax_cli.build_parser().parse_args(["--img_path", "x.png", *flags]))
+    assert cfg.to_json() == ref.to_json()
+    args = cli.build_parser().parse_args(["--img_path", "x.png", *flags, "--steps", "20", "10"])
+    d = cli.build_config(args).diffusion
+    assert (d.sampler, d.ddim_steps_stage1, d.ddim_steps_stage2) == (sampler, 20, 10)
+    default = cli.build_config(cli.build_parser().parse_args(["--img_path", "x.png"])).diffusion
+    assert (default.sampler, default.unet.quant, default.ddim_steps_stage1) == ("ddim", "none", 75)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        cli.apply_fast_modes(cfg, sampler=sampler.upper())

@@ -204,3 +204,32 @@ def test_server_estimate_elevation_and_generate_mesh(url, services, tmp_path):
     with pytest.raises(urllib.error.HTTPError) as err:
         _post(url, "/nowhere", {})
     assert err.value.code == 404 and json.loads(err.value.read()) == {"error": "not found"}
+
+
+def test_fast_modes_reach_the_service():
+    """--sampler dpmpp and --quant int8 reach the service through
+    PipelineConfig, as in the JAX service: /estimate_elevation and a view
+    retry sample with DPM-Solver++ on the int8 UNet (S schedule entries, S
+    UNet evals per stage call)."""
+    from one2345_tpu_torch.diffusion.quantize import QConv2d
+    from one2345_tpu_torch.diffusion.schedule import make_ddim_schedule
+    from one2345_tpu_torch.pipeline.cli import apply_fast_modes
+
+    cfg = apply_fast_modes(
+        config.PipelineConfig(diffusion=tiny_config(torch_side=True)), sampler="dpmpp",
+        steps=(4, 2), quant="int8")
+    pipe = runner.One2345Pipeline(cfg, use_sam=False, device="cpu")
+    pipe.estimate_elevation = lambda views: POLAR
+    service = api.One2345Service(pipe)
+    evals = []
+    unet = pipe.zero123.unet
+    assert any(isinstance(m, QConv2d) for m in unet.modules())
+    unet.register_forward_hook(lambda m, a, o: evals.append(int(a[1][0])))
+    img = np.ones((32, 32, 3), np.float32)
+    img[8:24, 8:24] = 0.4
+    assert service.estimate_elevation(img) == 90.0 - POLAR
+    s1, s2 = (make_ddim_schedule(n, eta=0.0).num_steps for n in (4, 2))
+    assert len(evals) == s1 + s2  # stage 1 of the 12 views, stage 2 of view 0
+    evals.clear()
+    views = service.regenerate_views([0, 5], seed=3)
+    assert views.shape == (2, 32, 32, 3) and len(evals) == s1 + s2  # view 0: its nearby views too

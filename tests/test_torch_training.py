@@ -258,3 +258,13 @@ def test_trainer_draws_from_its_generator_without_injected_draws(setup):
     assert losses[0] == losses[1] and np.isfinite(losses[0])
     with pytest.raises(KeyError):
         trainer.loss_fn(batch, {"noise_typo": np.zeros(1)})
+
+
+def test_zero123_trainer_rejects_quant_stage():
+    """int8 is an inference-only mode: the trainer refuses an int8 stage,
+    as the JAX trainer does (tests/test_quantize.py)."""
+    cfg = tiny_config(torch_side=True)
+    stage = port_z.Zero123Stage(cfg.replace(unet=cfg.unet.replace(quant="int8")), device="cpu")
+    assert stage.quant
+    with pytest.raises(ValueError, match="f32 param tree"):
+        Zero123Trainer(stage, {}, device="cpu")
