@@ -85,23 +85,42 @@ Phases, one line each; any failure exits non-zero and prints no result:
    remat, f32 weights, bf16 autocast): one cold step and five warm ones,
    each timed, its launches counted, and the first one's gradients, params
    and EMA checked;
-14. device times: each kernel's device time per launch (torch.profiler) at
+14. recon train: reconstruction training on phase 9's warm scene (its
+   stage1_8/, stage2_8/ and pose.json, kept under _smoke_scenes/) with
+   seeded weights of the 8 networks (lod0 and lod1): (a) one
+   ReconTrainer.scene_loss with its backward at lod0 and at lod1 on the
+   card in f32 and on the CPU in f32 and float64, the same draws, at full
+   widths but cut to 9 views, 48^3 / 96^3 volumes and 64 rays (running
+   statistics card against CPU; the loss, metrics and every gradient card
+   against the float64 reference, as accurate as the CPU's f32); (b) train_recon.main at full width (ReconConfig(
+   num_lods=2): 33 views at 256^2, 96^3 then 192^3, 512 rays, f32): 4
+   steps with validation at step 2 and checkpoints, seconds per step, peak
+   memory, metrics.jsonl and the lod0 / lod1 panels read back, the
+   checkpoint reloaded, --resume to a fifth step, one --num_lods 1 step;
+   (c) the lod1 reconstruct (ReconStage(ReconConfig(num_lods=2)), R=256)
+   on the trained weights cold and warm: seconds per span, the mesh
+   checks, the pruned occupancy card against CPU, the depth-filtered
+   pruning once with its depth maps card against CPU;
+15. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 to 13, which a profiled run can slow on the
+   after the timed phases 6 to 14, which a profiled run can slow on the
    host; then one warm reconstruct, one warm elevation estimate and one
    warm bf16 SAM encode under torch.profiler: device ms by kernel family
    (for SAM also the global blocks' share), the device's busy share, host
-   ms of marching tets; last, one card QConv2d call of each kind (the
-   integer GEMM inside its range, no conv kernel) and the int8 and bf16
-   UNet evals at B=8 and B=56: device ms by family, and the int8 GEMMs'
-   and the quantize and dequantize passes' shares.
+   ms of marching tets; one card QConv2d call of each kind (the integer
+   GEMM inside its range, no conv kernel) and the int8 and bf16 UNet evals
+   at B=8 and B=56: device ms by family, and the int8 GEMMs' and the
+   quantize and dequantize passes' shares; last, one warm full-width lod1
+   train step of phase 14: device ms by family, in its forward, backward
+   and optimizer ranges, the backward's share, the busy share.
 
 Then the kernels' JSON line (K1's launches are those of the CLI run, the
 main path from a raw image), the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout (the pipeline's and
 the CLI's files go to _smoke_out/, removed at the end of phases 9, 11 and
-12).
+12; the training scene and runs to _smoke_scenes/, removed at the end of
+phase 14).
 """
 
 from __future__ import annotations
@@ -178,6 +197,46 @@ PLMS_STAGE1_EVALS = 77 + 1  # make_ddim_schedule(75) entries and PLMS's Heun ste
 # the runner's outputs go here, inside the checkout (gitignored), and are
 # removed at the end of the phase
 PIPELINE_OUT = os.path.join(REPO, "_smoke_out")
+# phase 9's warm scene (stage1_8/, stage2_8/, pose.json) under data/shape0/,
+# the training runs' directories beside it (gitignored); removed by phase 14
+SCENES_OUT = os.path.join(REPO, "_smoke_scenes")
+# the recon train phase: the schedules' step of its card-against-CPU check
+# (past every ramp and the fg/bg gate, so that every loss term counts)
+RECON_TRAIN_STEP = 60_000
+# its cuts, so that the CPU side stays well inside a minute, widths full:
+# 9 of the 33 views (the reference and one source view per stage-1 view),
+# 48^3 / 96^3 volumes in place of 96^3 / 192^3, 64 of the 512 rays
+RECON_TRAIN_VIEWS = [0, 1, 5, 9, 13, 17, 21, 25, 29]
+RECON_TRAIN_CHECK = dict(vol_dims=(48, 48, 48), voxel_size=2.0 / 47.0,
+                         lod1_vol_dims=(96, 96, 96), lod1_voxel_size=2.0 / 95.0, n_rays=64)
+# loss and metrics, relative, card f32 against the CPU float64 run: within
+# RECON_LOSS_TOL or, where the CPU's own f32 is less accurate, within
+# RECON_GRAD_FACTOR times its worst metric error (on phase 9's scene the
+# CPU's f32 eikonal_lod1 was 8.3e-4 from float64, the card's 2.7e-4)
+RECON_LOSS_TOL = 1e-4
+# the sparsity terms, mean exp(-100 |sdf|), multiply an SDF difference by
+# 100: sparse_loss_lod1 was 4.1e-4 from float64 on the card (the CPU's f32
+# 5e-6) on a synthetic scene
+RECON_SPARSE_TOL = 1e-3
+RECON_STATS_TOL = 1e-5  # max abs, BN running statistics, card against CPU
+# gradients: the cost's variance E[x^2] - E[x]^2 (the reference's formula)
+# and batch norms over near-constant channels leave the feature path's
+# gradients accurate to ~1e-2 in f32 on either device (CPU f32 against
+# CPU f64 on this check's inputs: 8.7e-3 / 1.7e-2 worst at lod0 / lod1,
+# where the card differed from the CPU by 1.3e-2 / 6.0e-2 and from itself
+# by 1e-6), so the card's f32 gradients are held against a CPU float64
+# run: each within RECON_GRAD_TOL relative L2 or, where the CPU's own f32
+# is less accurate, within RECON_GRAD_FACTOR times its worst error; the
+# global gradient the same way.  Floor: 1e-6 of the global norm.
+RECON_GRAD_TOL = 1e-3
+RECON_GRAD_FACTOR = 4.0
+# the blend's softmax is shift invariant: these biases' true gradient is 0,
+# held on both devices to the floor instead
+ZERO_GRADS = ("render.rgb_fc2.bias", "render_lod1.rgb_fc2.bias")
+RECON_LOD1_SPANS = ("feature_maps", "conditional_volume", "prune", "feature_maps_lod1",
+                    "conditional_volume_lod1", "field_grid", "field_to_host", "marching_tets",
+                    "colors")
+TRAIN_PHASES = ("train_forward", "train_backward", "train_optimizer")
 
 # (name, B, T=S, H, D) of every flash-attention call on the main path:
 # level 0 at the CFG batch of 4 views (8) and of 28 views (56), then
@@ -1103,6 +1162,13 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
                 f"mesh.obj), stage1_8/{sel[k]}.png read back equal | peak mem "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}"
             )
+        # the warm run's scene, as train_recon reads it, for phase 14
+        shutil.rmtree(SCENES_OUT, ignore_errors=True)
+        shape = os.path.join(SCENES_OUT, "data", "shape0")
+        os.makedirs(shape)
+        for name in ("stage1_8", "stage2_8"):
+            shutil.copytree(os.path.join(PIPELINE_OUT, "warm", name), os.path.join(shape, name))
+        shutil.copy(os.path.join(PIPELINE_OUT, "warm", "pose.json"), shape)
     finally:
         shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
     cold, warm = runs["cold"], runs["warm"]
@@ -1884,29 +1950,31 @@ def phase_sam_profile(stage, rgb, smi):
     ))
 
 
-def recon_params(seed: int) -> dict:
-    """State dicts of a full-width ReconStage: ``seeded_state_dict`` weights
-    for the feature, cost-volume and blending nets; the SDF MLP keeps the
-    port's geometric init (a sphere, so the mesh is not empty) with its
-    latent columns drawn N(0, 0.01^2), so that the volume moves the
-    surface."""
+def recon_params(seed: int, num_lods: int = 1) -> dict:
+    """State dicts of a full-width ReconStage (with ``num_lods=2`` the lod1
+    networks too; the lod0 ones are the same either way):
+    ``seeded_state_dict`` weights for the feature, cost-volume and blending
+    nets; each SDF MLP keeps the port's geometric init (a sphere, so the
+    mesh is not empty) with its latent columns drawn N(0, 0.01^2), so that
+    the volume moves the surface."""
     import torch
 
     from one2345_tpu_torch.core.config import ReconConfig
     from one2345_tpu_torch.recon.pipeline import ReconStage
 
-    base = ReconStage(ReconConfig(), seed=seed, device="cpu")
+    base = ReconStage(ReconConfig(num_lods=num_lods), seed=seed, device="cpu")
     params = {
         key: seeded_state_dict(module, seed + i)
         for i, (key, module) in enumerate(base.modules().items())
     }
     gen = torch.Generator().manual_seed(seed)
     d_latent = ReconConfig().regnet_d_out
-    for name, p in base.sdf_net.sdf_layer.state_dict().items():
-        x = p.clone()
-        if name.endswith(".v") and not name.startswith("lin0."):
-            x[-d_latent:] = 0.01 * torch.randn(x[-d_latent:].shape, generator=gen)
-        params["sdf"][f"sdf_layer.{name}"] = x
+    for key in ("sdf", "sdf_lod1")[:num_lods]:
+        for name, p in base.modules()[key].sdf_layer.state_dict().items():
+            x = p.clone()
+            if name.endswith(".v") and not name.startswith("lin0."):
+                x[-d_latent:] = 0.01 * torch.randn(x[-d_latent:].shape, generator=gen)
+            params[key][f"sdf_layer.{name}"] = x
     return params
 
 
@@ -2272,6 +2340,416 @@ def check_first_step(trainer, named, start) -> str:
     )
 
 
+def rel_l2_np(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def recon_train_check(params, scene) -> str:
+    """(a) One ReconTrainer.scene_loss with its backward on the card (f32),
+    on the CPU (f32) and on the CPU in float64 (the reference), TF32 off:
+    the same seeded weights (lod1 networks included), the same scene cut
+    to RECON_TRAIN_CHECK, the same injected draws; at lod0 (num_lods=1)
+    and lod1 (num_lods=2).  The lod1 branch of every run takes the CPU f32
+    run's pruned occupancy: a voxel within f32 error of the threshold can
+    flip between devices, and the lod1 batch norms spread a flip to every
+    voxel (the pruning is compared on its own in (c)); the flips of the
+    card's own pruning are counted."""
+    import torch
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+    from one2345_tpu_torch.training.recon_trainer import ReconTrainer
+
+    views = RECON_TRAIN_VIEWS
+    n_rays = RECON_TRAIN_CHECK["n_rays"]
+    cut = {k: (v[views] if k in ("images", "affines", "w2cs", "intrinsics") else v[:n_rays]
+               if k.startswith("rays_") else v) for k, v in scene.items()}
+    lines = []
+    for num_lods in (1, 2):
+        cfg = ReconConfig(num_lods=num_lods, **RECON_TRAIN_CHECK)
+        gen = torch.Generator().manual_seed(40 + num_lods)
+        draws = {}
+        for sfx in ("", "_lod1")[:num_lods]:
+            draws["t_rand" + sfx] = torch.rand((n_rays, cfg.n_samples), generator=gen)
+            draws["pts_random" + sfx] = torch.rand((1024, 3), generator=gen) * 2.0 - 1.0
+        res, masks, vols = {}, {}, {}
+        for run, dev, dtype in (("cpu", "cpu", torch.float32), ("card", "cuda", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+            stage = ReconStage(cfg, params=params, device=dev)
+            for m in stage.modules().values():
+                m.to(dtype)
+
+            def shared_prune(volume, mask, own=stage.prune_occupancy, run=run):
+                masks[run] = own(volume, mask).cpu()
+                return masks["cpu"].to(volume.device)
+
+            def kept_volume(*args, own=stage.sdf_net_lod1.build_volume if num_lods > 1 else None,
+                            run=run):
+                out = own(*args)
+                vols[run] = {k: v.detach().cpu().double() for k, v in out.items()}
+                return out
+
+            stage.prune_occupancy = shared_prune
+            if num_lods > 1:
+                stage.sdf_net_lod1.build_volume = kept_volume
+            tr = ReconTrainer(stage, cfg)
+            tr.dtype = dtype
+            t0 = time.perf_counter()
+            loss, metrics = tr.scene_loss(cut, RECON_TRAIN_STEP, draws)
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            grads = {f"{k}.{n}": p.grad.detach().cpu().double() for k, m in tr.modules.items()
+                     for n, p in m.named_parameters()}
+            stats = {f"{k}.{n}": t.detach().cpu().double() for k, m in tr.modules.items()
+                     for n, t in m.state_dict().items() if "running" in n}
+            res[run] = ({k: float(v) for k, v in metrics.items()}, grads, stats, dt)
+        (m_gpu, g_gpu, s_gpu, dt_gpu), (m_cpu, g_cpu, s_cpu, dt_cpu) = res["card"], res["cpu"]
+        g64, dt64 = res["cpu64"][1], res["cpu64"][3]
+        m64 = res["cpu64"][0]
+
+        def metric_errs(m):
+            return {k: abs(m[k] - v) / max(abs(v), 1e-30) for k, v in m64.items()}
+
+        me_card, me_cpu = metric_errs(m_gpu), metric_errs(m_cpu)
+        cpu_worst = max(me_cpu.values())
+        problems = [
+            f"metric {k}: card {m_gpu[k]}, CPU {m_cpu[k]}, CPU f64 {v}"
+            for k, v in m64.items()
+            if not (math.isfinite(m_gpu[k]) and me_card[k] <= max(
+                RECON_SPARSE_TOL if k.startswith("sparse") else RECON_LOSS_TOL,
+                RECON_GRAD_FACTOR * cpu_worst))
+        ]
+        norm64 = math.sqrt(sum(float((g ** 2).sum()) for g in g64.values()))
+        floor = 1e-6 * norm64
+
+        def errs(g):
+            per = {k: float((g[k] - r).norm()) / max(float(r.norm()), floor)
+                   for k, r in g64.items() if k not in ZERO_GRADS}
+            total = math.sqrt(sum(float(((g[k] - r) ** 2).sum()) for k, r in g64.items()))
+            return per, total / norm64
+
+        e_card, glob_card = errs(g_gpu)
+        e_cpu, glob_cpu = errs(g_cpu)
+        vs_cpu = {k: float((g_gpu[k] - g).norm()) / max(float(g.norm()), floor)
+                  for k, g in g_cpu.items() if k not in ZERO_GRADS}
+        bound = max(RECON_GRAD_TOL, RECON_GRAD_FACTOR * max(e_cpu.values()))
+        zeros = max(max(float(g_gpu[k].norm()), float(g64[k].norm())) for k in ZERO_GRADS
+                    if k in g64)
+        worst = max(e_card, key=e_card.get)
+        stat_err = max(float((s_gpu[k] - v).abs().max()) for k, v in s_cpu.items())
+        if (not e_card[worst] <= bound
+                or not glob_card <= max(RECON_GRAD_TOL, RECON_GRAD_FACTOR * glob_cpu)
+                or not zeros <= floor or not stat_err <= RECON_STATS_TOL):
+            problems.append(
+                f"card f32 vs CPU f64 worst gradient {worst} {e_card[worst]} (<= {bound}), "
+                f"global {glob_card} (CPU f32 {glob_cpu}), zero-gradient biases {zeros} (floor "
+                f"{floor}), running stats {stat_err}")
+        flips = ""
+        if masks:
+            flips = (f", the card's own pruning flips {int((masks['card'] != masks['cpu']).sum())} "
+                     f"of {masks['cpu'].numel()} voxels; lod1 volume card vs CPU: masks differ at "
+                     f"{int((vols['card']['mask'] != vols['cpu']['mask']).sum())} voxels, "
+                     f"volume relative L2 {rel_l2_np(vols['card']['volume'], vols['cpu']['volume']):.2e}"
+                     f" (CPU f32 vs f64 {rel_l2_np(vols['cpu']['volume'], vols['cpu64']['volume']):.2e})")
+        if problems:
+            fail(f"recon train (a) lod{num_lods - 1}{flips}: " + "; ".join(problems))
+        lines.append(
+            f"lod{num_lods - 1} (num_lods={num_lods}){flips}: loss {m64['loss']:.6f}; metrics "
+            f"against CPU f64: card f32 worst {max(me_card.values()):.2e} "
+            f"({max(me_card, key=me_card.get)}), CPU f32 worst {cpu_worst:.2e}; "
+            f"{len(e_card)} gradients against CPU f64: card f32 worst "
+            f"{e_card[worst]:.2e} ({worst}), global {glob_card:.2e}; CPU f32 worst "
+            f"{max(e_cpu.values()):.2e}, global {glob_cpu:.2e} (bound {bound:.2e}); card vs CPU "
+            f"f32 worst {max(vs_cpu.values()):.2e}; zero-gradient biases {zeros:.1e} (floor "
+            f"{floor:.1e}); {len(s_cpu)} running stats card vs CPU max abs {stat_err:.2e}; card "
+            f"{dt_gpu:.2f} s, CPU {dt_cpu:.2f} s, CPU f64 {dt64:.2f} s"
+        )
+    return "; ".join(lines)
+
+
+def read_metrics(path: str):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def recon_train_run(params, smi):
+    """(b) train_recon.main at full width on phase 9's scene: 4 lod1 steps
+    with validation at step 2 and checkpoints at 2 and 4, metrics and PNGs
+    read back, the checkpoint reloaded, --resume for a fifth step, one
+    lod0 step.  Returns the trainer."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.core import checkpoint
+    from one2345_tpu_torch.training import train_recon
+    from one2345_tpu_torch.utils.png import read_png
+
+    data = os.path.join(SCENES_OUT, "data")
+    init = os.path.join(SCENES_OUT, "init.pt")
+    checkpoint.save(init, params)
+    exp = os.path.join(SCENES_OUT, "exp")
+    args = ["--data_root", data, "--init_params", init, "--log_every", "1", "--exp_dir", exp]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_recon.main(args + ["--num_lods", "2", "--max_steps", "4", "--val_every", "2",
+                                       "--ckpt_every", "2"])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = read_metrics(os.path.join(exp, "metrics.jsonl"))
+    steps = [r for r in recs if "loss" in r]
+    vals = [r for r in recs if "loss" not in r]
+    if [r["step"] for r in steps] != [0, 1, 2, 3] or not all(
+            math.isfinite(v) for r in recs for v in r.values()):
+        fail(f"recon train (b): metrics records {recs}")
+    if sorted(k for r in vals for k in r if k.startswith("val_")) != ["val_psnr", "val_psnr_lod1"] \
+            or any(r["step"] != 2 for r in vals):
+        fail(f"recon train (b): validation records {vals}")
+    for key in ("psnr", "psnr_lod1", "eikonal", "eikonal_lod1", "color_loss_lod1"):
+        if key not in steps[0]:
+            fail(f"recon train (b): no {key} in the metrics")
+    panels = []
+    for sfx in ("", "_lod1"):
+        png = read_png(os.path.join(exp, "val", f"step_000002{sfx}.png"))
+        if png.shape != (256, 1024, 3) or png.std() == 0:
+            fail(f"recon train (b): validation panel{sfx} {png.shape}, std {png.std()}")
+        panels.append(png)
+    names = sorted(os.listdir(exp))
+    if names != ["metrics.jsonl", "step_000002", "step_000004", "val"]:
+        fail(f"recon train (b): {names} in the run's directory")
+    state = checkpoint.restore(os.path.join(exp, "step_000004"))
+    same = all(torch.equal(state["params"][k][n], t.cpu()) for k, m in trainer.modules.items()
+               for n, t in m.state_dict().items())
+    if state["step"] != 4 or not same or len(state["params"]) != 8:
+        fail(f"recon train (b): checkpoint step {state['step']}, params equal {same}")
+    secs = [1.0 / r["steps_per_sec"] for r in steps]
+    val = {k: v for r in vals for k, v in r.items() if k.startswith("val_")}
+    log(
+        f"phase recon train (b): train_recon.main --num_lods 2 --max_steps 4 --val_every 2 "
+        f"--ckpt_every 2 at full width (ReconConfig(num_lods=2): 33 views at 256^2, 96^3 then "
+        f"192^3, {trainer.cfg.n_rays} rays of {trainer.cfg.n_samples} + {trainer.cfg.n_importance} "
+        f"samples, f32, TF32 off): {total:.2f} s in all, seconds per step "
+        + ", ".join(f"{s:.3f}" for s in secs)
+        + f" (step 0 cold, step 2 with the lod0 and lod1 validation renders), loss "
+        + ", ".join(f"{r['loss']:.4f}" for r in steps)
+        + f", psnr_lod1 {steps[-1]['psnr_lod1']:.2f}, val psnr {val['val_psnr']:.2f} / lod1 "
+        f"{val['val_psnr_lod1']:.2f} | peak mem {peak:.2f} GiB | {smi}"
+    )
+    t0 = time.perf_counter()
+    resumed = train_recon.main(args + ["--num_lods", "2", "--max_steps", "5", "--resume",
+                                       "--ckpt_every", "100"])
+    resume_s = time.perf_counter() - t0
+    recs = read_metrics(os.path.join(exp, "metrics.jsonl"))
+    if resumed.step != 5 or [r["step"] for r in recs if "loss" in r] != [0, 1, 2, 3, 4]:
+        fail(f"recon train (b): --resume ran to step {resumed.step}, records {recs[-2:]}")
+    exp0 = os.path.join(SCENES_OUT, "exp_lod0")
+    t0 = time.perf_counter()
+    one = train_recon.main(["--data_root", data, "--init_params", init, "--exp_dir", exp0,
+                            "--num_lods", "1", "--max_steps", "1"])
+    lod0_s = time.perf_counter() - t0
+    rec = read_metrics(os.path.join(exp0, "metrics.jsonl"))
+    if one.step != 1 or len(one.modules) != 4 or len(rec) != 1 or "loss_lod1" in rec[0] \
+            or not all(math.isfinite(v) for v in rec[0].values()):
+        fail(f"recon train (b): the --num_lods 1 run: step {one.step}, records {rec}")
+    log(
+        f"phase recon train (b): validation panels step_000002.png and _lod1.png read back "
+        f"(256x1024x3), checkpoint step_000004 reloaded equal to the trainer (8 networks, step "
+        f"4); --resume --max_steps 5 continued at step 4 ({resume_s:.2f} s, loss "
+        f"{recs[-1]['loss']:.4f}); --num_lods 1 --max_steps 1: {lod0_s:.2f} s, loss "
+        f"{rec[0]['loss']:.4f}"
+    )
+    del resumed, one
+    return trainer
+
+
+def recon_lod1(trained, scene_images, cams, smi):
+    """(c) ReconStage(ReconConfig(num_lods=2)) at full width on the trained
+    weights, cold and warm: spans, mesh checks; the pruned occupancy card
+    against CPU; the depth-filtered pruning once, its depth maps card
+    against CPU."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+
+    cfg = ReconConfig(num_lods=2)
+    stage = ReconStage(cfg, params=trained, device="cuda")
+    images = torch.as_tensor(scene_images, device="cuda")
+    meshes = {}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        mesh, spans, total = recon_run(stage, images, cams, RECON_RESOLUTION)
+        if tuple(spans) != RECON_LOD1_SPANS:
+            fail(f"recon lod1 {run}: spans {tuple(spans)}")
+        check_mesh(f"lod1 {run}", mesh)
+        meshes[run] = mesh
+        log(
+            f"phase recon train (c) lod1 reconstruct ({run}): "
+            + ", ".join(f"{k} {spans[k]:.4f} s" for k in RECON_LOD1_SPANS)
+            + f", total {total:.4f} s | {len(mesh['vertices'])} vertices, {len(mesh['faces'])} "
+            f"faces | peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}"
+        )
+    cold, warm = meshes["cold"], meshes["warm"]
+    if cold["vertices"].shape != warm["vertices"].shape or \
+            float(np.abs(warm["vertices"] - cold["vertices"]).max()) > 1e-5:
+        fail("recon lod1: warm mesh differs from cold")
+
+    # the pruned occupancy, card against CPU, on the card's lod0 volume
+    def cam(key, sel=slice(1, 33)):
+        return torch.as_tensor(np.asarray(cams[key][sel]), dtype=torch.float32)
+
+    cpu = ReconStage(cfg, params=trained, device="cpu")
+    out = stage.conditional_volume(stage.feature_maps(images), cam("affines").cuda())
+    vol, mask = out["volume"], out["mask"]
+    t0 = time.perf_counter()
+    occ_card = stage.prune_occupancy(vol, mask)
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t0
+    occ_card = occ_card.cpu()[..., 0]
+    occ_cpu = cpu.prune_occupancy(vol.cpu(), mask.cpu())[..., 0]
+    u = cpu.field_grid(vol.cpu(), cfg.vol_dims[0])
+    # the pruning compares the f16-rounded field with the threshold: in f32
+    # its boundary is the midpoint of the f16 values around the threshold
+    thr16 = np.float16(cfg.lod1_prune_threshold)
+    lo16 = thr16 if float(thr16) < cfg.lod1_prune_threshold else np.nextafter(thr16, np.float16(0))
+    hi16 = np.nextafter(lo16, np.float16(1))
+    boundary = 0.5 * (float(lo16) + float(hi16))
+    near = ((u.abs() - boundary).abs() <= 1e-6).float()
+    near = F.max_pool3d(near[None, None], 7, stride=1, padding=3)[0, 0] > 0
+    diff = occ_card != occ_cpu
+    if bool((diff & ~near).any()):
+        fail(f"recon lod1: pruned occupancy card vs CPU differs at {int((diff & ~near).sum())} "
+             f"voxels away from the threshold")
+    # the depth-filtered pruning, once; its depth maps card against CPU
+    args = (cam("affines"), cam("intrinsics"), cam("c2ws"),
+            torch.as_tensor(cams["near_fars"][1], dtype=torch.float32), tuple(cfg.image_hw))
+    t0 = time.perf_counter()
+    occ_df = stage.prune_occupancy_depth_filter(vol, mask, *(a.cuda() if torch.is_tensor(a) else a
+                                                             for a in args))
+    torch.cuda.synchronize()
+    df_s = time.perf_counter() - t0
+    d_card = stage.lod0_depth_maps(stage._pruning_field(vol), *(a.cuda() for a in args[1:4]),
+                                   args[4]).cpu()
+    d_cpu = cpu.lod0_depth_maps(cpu._pruning_field(vol.cpu()), *args[1:])
+    hit_card, hit_cpu = d_card > 0, d_cpu > 0
+    agree = float((hit_card == hit_cpu).float().mean())
+    both = hit_card & hit_cpu
+    err = (d_card - d_cpu).abs()[both]
+    close = float((err <= 1e-4).float().mean()) if err.numel() else 1.0
+    bracket = 2 * 2.0 / cfg.vol_dims[0]
+    if not agree >= 0.99 or not close >= 0.9 or float(err.max()) > bracket:
+        fail(f"recon lod1: depth maps card vs CPU: hits agree {agree}, common hits within 1e-4 "
+             f"{close}, max {float(err.max())} (<= {bracket})")
+    log(
+        f"phase recon train (c): pruned occupancy (|u| < {cfg.lod1_prune_threshold}, 7^3 "
+        f"dilation, the lod0 mask) on the card in {prune_s:.3f} s keeps "
+        f"{float(occ_card.float().mean()):.4f} of 96^3; card vs CPU {int(diff.sum())} voxels "
+        f"differ, all within the dilation of {int(((u.abs() - boundary).abs() <= 1e-6).sum())} "
+        f"voxels within 1e-6 of the f16 field's boundary {boundary:.7f}; depth-filtered pruning "
+        f"on the card {df_s:.3f} s keeps {float(occ_df.float().mean()):.4f}; its 32 depth maps "
+        f"at 64^2 card vs CPU: hits agree on {agree:.5f} of the pixels "
+        f"({float(hit_cpu.float().mean()):.4f} hit), {close:.5f} of the common hits within "
+        f"1e-4, max {float(err.max()):.2e} (<= the secant bracket {bracket:.4f})"
+    )
+
+
+def phase_recon_train(smi):
+    """Phase 14: reconstruction training on phase 9's scene, (a) card
+    against CPU, (b) train_recon.main at full width, (c) the lod1
+    reconstruct on the trained weights.  Returns (trainer, a full scene)
+    for the profile of phase 15."""
+    import shutil
+
+    import torch
+
+    from one2345_tpu_torch.training.data import ReconScenesDataset
+
+    t_phase = time.perf_counter()
+    data = os.path.join(SCENES_OUT, "data")
+    if not os.path.isfile(os.path.join(data, "shape0", "pose.json")):
+        fail(f"recon train: no scene under {data} (phase 9 keeps one)")
+    try:
+        params = recon_params(seed=30, num_lods=2)
+        ds = ReconScenesDataset(data, n_rays=512)
+        scene = ds.sample_scene(0, generator=torch.Generator().manual_seed(3))
+        loaded = ds.load_scene(0)
+        log(
+            f"phase recon train: phase 9's scene ({len(scene['images'])} views at 256^2, "
+            f"{int(scene['rays_mask'].sum())} of 512 rays on the foreground), seeded weights of "
+            f"the 8 networks"
+        )
+        log("phase recon train (a): card f32 vs CPU f32 and f64, TF32 off, 9 views, 48^3 / "
+            "96^3, 64 rays, full widths: " + recon_train_check(params, scene))
+        trainer = recon_train_run(params, smi)
+        recon_lod1(trainer.state_dict()["params"], loaded["images"][1:], loaded["cameras"], smi)
+    finally:
+        shutil.rmtree(SCENES_OUT, ignore_errors=True)
+    log(f"phase recon train: {time.perf_counter() - t_phase:.1f} s in all; {SCENES_OUT} removed")
+    return trainer, scene
+
+
+def phase_recon_train_profile(trainer, scene, smi):
+    """One warm full-width lod1 train step under torch.profiler: device ms
+    by kernel family, in all and in its forward, backward and optimizer
+    ranges, the backward's share, the busy share."""
+    import torch
+
+    def step():
+        trainer.optimizer.zero_grad(set_to_none=True)
+        with torch.profiler.record_function("train_forward"):
+            loss, _ = trainer.scene_loss(scene)
+        with torch.profiler.record_function("train_backward"):
+            loss.backward()
+        with torch.profiler.record_function("train_optimizer"):
+            trainer.optimizer_step()
+
+    wall_ms, events, ranges = profiled(step, TRAIN_PHASES)
+    # autograd launches the backward from its own thread, outside the
+    # main thread's range: the backward is what runs between the
+    # forward's end and the optimizer's start on the device timeline
+    fwd_end = ranges["train_forward"].end
+    opt_start = ranges["train_optimizer"].start
+
+    def phase(e):
+        t = e.time_range.start
+        return "train_forward" if t < fwd_end else "train_backward" if t < opt_start else \
+            "train_optimizer"
+
+    families, per_range = {}, {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        fam = kernel_family(e.name)
+        families[fam] = families.get(fam, 0.0) + ms
+        per_range.setdefault(phase(e), {})
+        per_range[phase(e)][fam] = per_range[phase(e)].get(fam, 0.0) + ms
+    device_ms = sum(families.values())
+    busy = busy_ms(events)
+    bwd = sum(per_range.get("train_backward", {}).values())
+    top: dict = {}
+    for e in events:
+        top[e.name] = top.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    log(
+        f"phase recon train profile: one warm lod1 step, wall {wall_ms:.1f} ms, device "
+        f"{device_ms:.1f} ms in {len(events)} device events, busy {busy:.1f} ms = "
+        f"{busy / wall_ms:.3f} of the wall, backward {bwd:.1f} ms = {bwd / device_ms:.3f} of the "
+        f"device time | by family (ms): {by_family(families)} | {smi}"
+    )
+    for rng in TRAIN_PHASES:
+        fams = per_range.get(rng, {})
+        log(f"phase recon train profile: {rng}: device {sum(fams.values()):.2f} ms "
+            f"({by_family(fams) or 'no device work'})")
+    log("phase recon train profile: top kernels (device ms): " + "; ".join(
+        f"{k[:90]} {v:.1f}" for k, v in sorted(top.items(), key=lambda kv: -kv[1])[:10]
+    ))
+
+
 def main() -> int:
     try:
         import torch
@@ -2306,11 +2784,13 @@ def main() -> int:
     card_int8_unet = phase_fast_modes(stage, unet_weights, stages, sam_w, cli_run_ddim, smi)
     del sam_w, cli_run_ddim
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
+    recon_trainer, recon_scene = phase_recon_train(smi)
     phase_device_times(rows, bwd_rows)
     phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
     phase_elevation_profile(estimator, views, smi)
     phase_sam_profile(sam_stage, sam_image, smi)
     phase_fast_modes_profile(stage, card_int8_unet, smi)
+    phase_recon_train_profile(recon_trainer, recon_scene, smi)
 
     def json_bound_by(by: str) -> str:
         # the line names two kinds of bound: the exp unit's rate is a peak

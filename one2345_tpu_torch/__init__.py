@@ -8,25 +8,29 @@ Ported so far: the image -> mesh path (``pipeline.runner.One2345Pipeline
 .run``): preprocessing (thumbnail, the safety gate, SAM ViT-H segmentation,
 recentring), Zero123-XL stage-1 / stage-2 sampling, with the UNet's
 self-attention on hand-written CUDA flash-attention kernels (``csrc/``),
-the LoFTR elevation estimate and the lod0 reconstruction stage (32 views ->
-colored mesh); the CLI, service and HTTP server around it; and the Zero123
-finetune step.
+the LoFTR elevation estimate and the reconstruction stage (32 views ->
+colored mesh, lod0 or coarse-to-fine lod1); the CLI, service and HTTP
+server around it; the Zero123 finetune step; and the reconstruction
+trainer (the volume renderer, ``training.recon_trainer.ReconTrainer``, the
+``training.train_recon`` CLI).
 
 Subpackages
 -----------
-core         config dataclasses, device, timing, checkpoints
+core         config dataclasses, device, timing, checkpoints, metrics logs
 diffusion    Zero123-XL latent diffusion (UNet, VAE, CLIP, DDIM)
 elevation    LoFTR matching and the elevation pose sweep
-geometry     camera rig, projection, bilinear / trilinear sampling
+geometry     camera rig, rays, projection, bilinear / trilinear sampling
 native       host C++ (marching tetrahedra, PNG row unfiltering), built with
              g++ at first use
 nn           building blocks of the reconstruction networks
 ops          hand-written CUDA kernels and their plain PyTorch versions
 pipeline     One2345Pipeline (the image -> mesh runner), the CLI, the
              service and the HTTP server
-recon        reconstruction: FPN, cost volume, SDF MLP, blending net, mesh
+recon        reconstruction: FPN, cost volume, SDF MLP, blending net, mesh,
+             the volume renderer, sphere tracing, validation renders
 segmentation SAM ViT-H and the safety checker
-training     the Zero123 finetune step
+training     the Zero123 finetune step, the reconstruction trainer and its
+             CLI, scene readers, losses
 utils        weight conversion from the JAX parameter trees, the PNG codec,
              PIL's and OpenCV's resizes, image preprocessing
 """

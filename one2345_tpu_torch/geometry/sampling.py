@@ -1,12 +1,13 @@
 """Bilinear / trilinear sampling (plain PyTorch, differentiable in the
 coordinates).
 
-Counterpart of ``one2345_tpu/geometry/sampling.py`` (``bilinear_sample``,
-``trilinear_sample``) with its ``zeros`` padding, the only one the
-reconstruction uses.  Conventions, as torch's ``grid_sample`` with
-align_corners=True and zeros padding: a normalized coordinate g in [-1, 1]
-maps to index (g + 1) / 2 * (size - 1), and each corner tap that lies
-outside the map contributes zero.  Coordinates stay f32 whatever the map's
+Counterpart of ``one2345_tpu/geometry/sampling.py``: ``bilinear_sample``,
+``trilinear_sample``, ``nearest_sample_volume`` and ``sample_pdf``.
+Conventions, as torch's ``grid_sample`` with align_corners=True: a
+normalized coordinate g in [-1, 1] maps to index (g + 1) / 2 * (size - 1);
+with ``zeros`` padding each corner tap that lies outside the map
+contributes zero, with ``border`` (trilinear only; the sphere tracer's) it
+reads the clamped edge voxel.  Coordinates stay f32 whatever the map's
 dtype; the weights are cast to the map's dtype, as the JAX functions cast
 them.
 
@@ -58,9 +59,11 @@ def bilinear_sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
     )
 
 
-def trilinear_sample(volume: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+def trilinear_sample(volume: torch.Tensor, pts: torch.Tensor, padding: str = "zeros") -> torch.Tensor:
     """Sample ``volume`` [X, Y, Z, C] at normalized pts [..., 3] in [-1, 1]
-    (pts[..., 0] indexes X, [..., 1] Y, [..., 2] Z) -> [..., C]."""
+    (pts[..., 0] indexes X, [..., 1] Y, [..., 2] Z) -> [..., C].  Built from
+    gathers and lerps, so twice differentiable in ``pts`` and ``volume``
+    (the eikonal loss differentiates the SDF's gradient)."""
     X, Y, Z = volume.shape[0], volume.shape[1], volume.shape[2]
     fx = _unnormalize(pts[..., 0], X)
     fy = _unnormalize(pts[..., 1], Y)
@@ -72,6 +75,8 @@ def trilinear_sample(volume: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
         v = volume[
             ix.clamp(0, X - 1).long(), iy.clamp(0, Y - 1).long(), iz.clamp(0, Z - 1).long()
         ]
+        if padding == "border":
+            return v
         ok = (
             (ix >= 0) & (ix <= X - 1)
             & (iy >= 0) & (iy <= Y - 1)
@@ -86,3 +91,50 @@ def trilinear_sample(volume: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
                 w = (wx * wy * wz)[..., None].to(volume.dtype)
                 out = out + tap(x0 + dx, y0 + dy, z0 + dz) * w
     return out
+
+
+def nearest_sample_volume(volume: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Nearest-voxel sampling of ``volume`` [X, Y, Z, C] at normalized pts
+    [..., 3] -> [..., C], zero outside (grid_sample mode='nearest', the
+    renderer's validity masks, sparse_neus_renderer.py:155-168).  Rounds
+    half to even, as ``jnp.round``."""
+    X, Y, Z = volume.shape[0], volume.shape[1], volume.shape[2]
+    ix = torch.round(_unnormalize(pts[..., 0], X))
+    iy = torch.round(_unnormalize(pts[..., 1], Y))
+    iz = torch.round(_unnormalize(pts[..., 2], Z))
+    ok = (ix >= 0) & (ix <= X - 1) & (iy >= 0) & (iy <= Y - 1) & (iz >= 0) & (iz <= Z - 1)
+    v = volume[ix.clamp(0, X - 1).long(), iy.clamp(0, Y - 1).long(), iz.clamp(0, Z - 1).long()]
+    return v * ok[..., None].to(volume.dtype)
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               u: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse-CDF importance sampling along rays (models/render_utils.py:8-51).
+
+    :param bins: [N_rays, M] bin edges (z values)
+    :param weights: [N_rays, M - 1] or [N_rays, M] (the CDF then has M + 1
+        entries; bin indices are clamped into ``bins``)
+    :param u: [N_rays, n_samples] uniforms; None -> the deterministic
+        mid-bin quantiles (the reference's det=True path)
+    """
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # [N, M+1]
+    n_rays = cdf.shape[0]
+    if u is None:
+        u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
+                           dtype=cdf.dtype, device=cdf.device)
+        u = u.expand(n_rays, n_samples).contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = (inds - 1).clamp(min=0)
+    above = inds.clamp(max=cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    nb = bins.shape[-1]
+    bins_g0 = torch.gather(bins, -1, below.clamp(max=nb - 1))
+    bins_g1 = torch.gather(bins, -1, above.clamp(max=nb - 1))
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)

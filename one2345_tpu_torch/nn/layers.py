@@ -6,10 +6,17 @@ the networks that use them convert at their own boundary.  Submodules are
 named after the flax scopes (``Conv_0``, ``BatchNorm_0``) so that
 ``utils.convert_jax`` maps a JAX parameter tree onto them mechanically.
 
-- ``ConvBnAct``: 2-D conv with symmetric ``k // 2`` padding, batch norm from its running statistics, LeakyReLU(0.01) — the
-  reference's InPlaceABN (featurenet.py:11-37) at inference.
-- ``MaskedBatchNorm``: the same normalisation times an occupancy mask
-  (torchsparse's BatchNorm over active voxels, at inference).
+- ``ConvBnAct``: 2-D conv with symmetric ``k // 2`` padding, batch norm,
+  LeakyReLU(0.01) — the reference's InPlaceABN (featurenet.py:11-37).
+- ``MaskedBatchNorm``: the same normalisation times an occupancy mask, its
+  training statistics over the active voxels only (torchsparse's
+  BatchNorm: inactive voxels do not exist in the sparse tensor).
+
+Batch norm has two modes, chosen per call by ``train`` as the flax modules
+take it, not by ``nn.Module.train()``: running statistics, or the batch's
+statistics with the running ones updated as flax updates them (momentum
+0.9, the **biased** batch variance; ``torch.nn.BatchNorm*`` would use the
+unbiased one).
 - ``WNDense``: weight-normalised dense layer ``w = g * v / ||v||`` computed
   explicitly, with ``v`` stored [in, out] as in the JAX module.
 """
@@ -30,9 +37,16 @@ def leaky_relu(x):
 
 
 class BatchNorm(nn.Module):
-    """Batch norm over dim 1 from running statistics (eps 1e-5).  The
-    statistics stay f32; the affine map is applied in the input's dtype,
-    as flax applies it in the module dtype."""
+    """Batch norm over dim 1 (eps 1e-5).  The statistics are at least f32
+    (flax promotes them so); the affine map is applied in the input's
+    dtype, as flax applies it in the module dtype.
+
+    ``train=True`` normalises with the batch statistics, var = E[x^2] -
+    E[x]^2 clipped at 0 (flax's ``use_fast_variance``), and updates the
+    running statistics outside the autograd graph:
+    ``ra = 0.9 * ra + (1 - 0.9) * batch``."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -42,21 +56,47 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
+    def _update(self, mean, var):
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var + (1 - m) * var.detach())
+
+    def _normalize(self, x, mean, var):
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        mean = self.running_mean.to(x.dtype).view(shape)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        mean = mean.to(x.dtype).view(shape)
         return (x - mean) * inv.to(x.dtype).view(shape) + self.bias.to(x.dtype).view(shape)
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return self._normalize(x, self.running_mean, self.running_var)
+        dims = (0,) + tuple(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=dims)
+        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+        self._update(mean, var)
+        return self._normalize(x, mean, var)
 
 
 class MaskedBatchNorm(BatchNorm):
     """``BatchNorm`` whose output is zero outside the mask ([N, 1, ...] of
-    {0, 1}): inactive voxels do not exist in the reference's sparse tensor.
-    Statistics over active voxels only matter in training, which is not
-    ported."""
+    {0, 1}).  In training its statistics run over the active elements only
+    (count clamped at 1; the variance in two passes, as the JAX module
+    computes it)."""
 
-    def forward(self, x, mask):
-        return super().forward(x) * mask.to(x.dtype)
+    def forward(self, x, mask, train: bool = False):
+        if not train:
+            return self._normalize(x, self.running_mean, self.running_var) * mask.to(x.dtype)
+        dims = (0,) + tuple(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        m = mask.to(xf.dtype)
+        count = m.sum().clamp(min=1.0)
+        mean = (xf * m).sum(dim=dims) / count
+        centred = xf - mean.view((1, -1) + (1,) * (x.dim() - 2))
+        var = (m * centred * centred).sum(dim=dims) / count
+        self._update(mean, var)
+        return self._normalize(x, mean, var) * mask.to(x.dtype)
 
 
 class ConvBnAct(nn.Module):
@@ -73,8 +113,8 @@ class ConvBnAct(nn.Module):
         )
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x):
-        return leaky_relu(self.BatchNorm_0(self.Conv_0(x.to(self.Conv_0.weight.dtype))))
+    def forward(self, x, train: bool = False):
+        return leaky_relu(self.BatchNorm_0(self.Conv_0(x.to(self.Conv_0.weight.dtype)), train))
 
 
 class WNDense(nn.Module):

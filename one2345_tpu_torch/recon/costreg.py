@@ -47,20 +47,20 @@ class _MConvBnRelu(nn.Module):
         self.Conv_0 = nn.Conv3d(cin, features, 3, stride=stride, padding=1, bias=False)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
 
-    def forward(self, x, mask_in, mask_out):
+    def forward(self, x, mask_in, mask_out, train: bool = False):
         x = x * mask_in.to(x.dtype)
         x = self.Conv_0(x.to(self.Conv_0.weight.dtype))
-        return torch.relu(self.MaskedBatchNorm_0(x, mask_out))
+        return torch.relu(self.MaskedBatchNorm_0(x, mask_out, train))
 
 
 class _MDeconvBnRelu(_MConvBnRelu):
     """Masked transposed conv3d (k3, s2) + masked BN + ReLU, as zero
     insertion followed by a k3 conv."""
 
-    def forward(self, x, mask_in, mask_out):
+    def forward(self, x, mask_in, mask_out, train: bool = False):
         x = _upsample2x_zero(x * mask_in.to(x.dtype))
         x = self.Conv_0(x.to(self.Conv_0.weight.dtype))
-        return torch.relu(self.MaskedBatchNorm_0(x, mask_out))
+        return torch.relu(self.MaskedBatchNorm_0(x, mask_out, train))
 
 
 class CostRegNet(nn.Module):
@@ -77,24 +77,27 @@ class CostRegNet(nn.Module):
             setattr(self, f"_MDeconvBnRelu_{i}", _MDeconvBnRelu(cin, cout))
         self.to(memory_format=torch.channels_last_3d)
 
-    def forward(self, volume: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, volume: torch.Tensor, mask: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         """volume [X, Y, Z, C_in], mask [X, Y, Z, 1] -> [X, Y, Z, d_out],
-        zero at inactive voxels."""
+        zero at inactive voxels; ``train`` normalises with the statistics of
+        each level's active voxels."""
         x = volume.permute(3, 0, 1, 2)[None]
         m0 = mask.permute(3, 0, 1, 2)[None].to(torch.float32)
         m1 = _mask_down(m0)
         m2 = _mask_down(m1)
         m3 = _mask_down(m2)
 
-        conv0 = self._MConvBnRelu_0(x, m0, m0)
-        conv1 = self._MConvBnRelu_1(conv0, m0, m1)
-        conv2 = self._MConvBnRelu_2(conv1, m1, m1)
-        conv3 = self._MConvBnRelu_3(conv2, m1, m2)
-        conv4 = self._MConvBnRelu_4(conv3, m2, m2)
-        conv5 = self._MConvBnRelu_5(conv4, m2, m3)
-        conv6 = self._MConvBnRelu_6(conv5, m3, m3)
+        t = train
+        conv0 = self._MConvBnRelu_0(x, m0, m0, t)
+        conv1 = self._MConvBnRelu_1(conv0, m0, m1, t)
+        conv2 = self._MConvBnRelu_2(conv1, m1, m1, t)
+        conv3 = self._MConvBnRelu_3(conv2, m1, m2, t)
+        conv4 = self._MConvBnRelu_4(conv3, m2, m2, t)
+        conv5 = self._MConvBnRelu_5(conv4, m2, m3, t)
+        conv6 = self._MConvBnRelu_6(conv5, m3, m3, t)
 
-        x = conv4 + self._MDeconvBnRelu_0(conv6, m3, m2)
-        x = conv2 + self._MDeconvBnRelu_1(x, m2, m1)
-        x = conv0 + self._MDeconvBnRelu_2(x, m1, m0)
+        x = conv4 + self._MDeconvBnRelu_0(conv6, m3, m2, t)
+        x = conv2 + self._MDeconvBnRelu_1(x, m2, m1, t)
+        x = conv0 + self._MDeconvBnRelu_2(x, m1, m0, t)
         return (x * m0.to(x.dtype))[0].permute(1, 2, 3, 0)

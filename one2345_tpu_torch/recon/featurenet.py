@@ -6,7 +6,8 @@ trainer_generic.py:1104-1125).  Submodules carry the flax scope names
 (``ConvBnAct_0`` .. ``ConvBnAct_7``, ``toplayer``, ``lat1``, ``lat0``,
 ``smooth1``, ``smooth0``).  ``FeatureNet`` works on [B, C, H, W];
 ``PyramidFeatureFusion`` takes and returns channels-last maps, as the JAX
-module does.
+module does.  ``train`` selects the batch norms' batch statistics, as the
+JAX ``__call__(..., train)``.
 """
 
 from __future__ import annotations
@@ -40,10 +41,10 @@ class FeatureNet(nn.Module):
         self.smooth1 = nn.Conv2d(32, 16, 3, padding=1)
         self.smooth0 = nn.Conv2d(32, 8, 3, padding=1)
 
-    def forward(self, x):
-        conv0 = self.ConvBnAct_1(self.ConvBnAct_0(x))
-        conv1 = self.ConvBnAct_4(self.ConvBnAct_3(self.ConvBnAct_2(conv0)))
-        conv2 = self.ConvBnAct_7(self.ConvBnAct_6(self.ConvBnAct_5(conv1)))
+    def forward(self, x, train: bool = False):
+        conv0 = self.ConvBnAct_1(self.ConvBnAct_0(x, train), train)
+        conv1 = self.ConvBnAct_4(self.ConvBnAct_3(self.ConvBnAct_2(conv0, train), train), train)
+        conv2 = self.ConvBnAct_7(self.ConvBnAct_6(self.ConvBnAct_5(conv1, train), train), train)
 
         feat2 = _conv(self.toplayer, conv2)
         lat1 = _conv(self.lat1, conv1)
@@ -61,9 +62,10 @@ class PyramidFeatureFusion(nn.Module):
         super().__init__()
         self.fpn = FeatureNet()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """[V, H, W, 3] -> [V, H, W, 56] in the convs' dtype."""
-        feats = self.fpn(images.permute(0, 3, 1, 2))
+    def forward(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """[V, H, W, 3] -> [V, H, W, 56] in the convs' dtype; ``train``
+        normalises with batch statistics over the V views."""
+        feats = self.fpn(images.permute(0, 3, 1, 2), train)
         H, W = images.shape[1], images.shape[2]
         f2 = resize_bilinear_align_corners(feats[0], (H, W))
         f1 = resize_bilinear_align_corners(feats[1], (H, W))

@@ -6,7 +6,7 @@
 module, which the port's modules load with ``strict=True``;
 ``trainable_from_jax`` does the same for the trainer's trainable tree, and
 ``recon_from_jax`` for ``ReconStage.params`` ('fusion', 'sdf', 'render',
-'variance'), ``loftr_from_jax`` for ``LoFTRMatcher.params`` and
+'variance' and the lod1 trees), ``loftr_from_jax`` for ``LoFTRMatcher.params`` and
 ``sam_from_jax`` for ``SamStage.params``.
 
 The port names its submodules after the flax scopes, so the mapping is
@@ -105,11 +105,17 @@ def zero123_from_jax(params: Mapping) -> dict:
     }
 
 
+RECON_KEYS = ("fusion", "sdf", "render", "variance",
+              "fusion_lod1", "sdf_lod1", "render_lod1", "variance_lod1")
+
+
 def recon_from_jax(params: Mapping) -> dict:
-    """JAX ``ReconStage.params`` (lod0) -> the state dicts
+    """JAX ``ReconStage.params`` -> the state dicts
     ``recon.pipeline.ReconStage`` loads: {'fusion', 'sdf', 'render',
-    'variance'}."""
-    return {name: flax_to_state_dict(params[name]) for name in ("fusion", "sdf", "render", "variance")}
+    'variance'} and, where the tree has them (``num_lods=2``),
+    {'fusion_lod1', 'sdf_lod1', 'render_lod1', 'variance_lod1'}.  A tree of
+    the JAX trainer's params or gradients maps the same way."""
+    return {name: flax_to_state_dict(params[name]) for name in RECON_KEYS if name in params}
 
 
 def loftr_from_jax(params: Mapping) -> dict:

@@ -1,7 +1,7 @@
 """one2345_tpu_torch stands alone: it imports no JAX, no flax, no optax,
-nothing of one2345_tpu, and no PIL, cv2 or scipy (the machine with the card
-has none of them), and its entry points run on the card unless the caller
-asks for the CPU."""
+nothing of one2345_tpu, and no PIL, cv2, scipy or tensorboardX (the machine
+with the card has none of them), and its entry points run on the card
+unless the caller asks for the CPU."""
 
 import ast
 import json
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "one2345_tpu", "PIL", "cv2", "scipy")
+FORBIDDEN = ("jax", "flax", "optax", "one2345_tpu", "PIL", "cv2", "scipy", "tensorboardX")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -71,6 +71,13 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.diffusion.dpm_solver",
         "one2345_tpu_torch.diffusion.img2img",
         "one2345_tpu_torch.diffusion.quantize",
+        "one2345_tpu_torch.core.logging",
+        "one2345_tpu_torch.geometry.rays",
+        "one2345_tpu_torch.recon.fast_renderer",
+        "one2345_tpu_torch.recon.validation",
+        "one2345_tpu_torch.training.losses",
+        "one2345_tpu_torch.training.recon_trainer",
+        "one2345_tpu_torch.training.train_recon",
     ):
         assert module in report["modules"]
     leaked = [
@@ -112,6 +119,22 @@ def test_recon_stage_defaults_to_the_card():
         pytest.skip("a card is present: the default device resolves to it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ReconStage()
+
+
+def test_recon_training_defaults_to_the_card(tmp_path):
+    """ReconStage with lod1, and train_recon.main (its stage, so its
+    trainer and Validator), resolve device=None to the card."""
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+    from one2345_tpu_torch.training import train_recon
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReconStage(ReconConfig(num_lods=2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_recon.main(["--data_root", str(tmp_path), "--exp_dir", str(tmp_path / "exp")])
+    assert not (tmp_path / "exp").exists()
 
 
 def test_marching_tets_source_is_the_jax_package_s():

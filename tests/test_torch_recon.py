@@ -76,8 +76,12 @@ def _lattice(n):
 
 
 def test_stage_ports_lod0_only():
-    with pytest.raises(NotImplementedError, match="lod0"):
-        ReconStage(ReconConfig(**SMALL, num_lods=2), device="cpu")
+    """A num_lods=1 stage holds the lod0 networks only and refuses lod 1
+    (the lod1 path is tests/test_torch_recon_lod1.py's)."""
+    stage = ReconStage(ReconConfig(**SMALL), device="cpu")
+    assert set(stage.modules()) == {"fusion", "sdf", "render", "variance"}
+    with pytest.raises(ValueError, match="num_lods=2"):
+        stage.lod_modules(1)
 
 
 def test_field_grid_matches_jax_pointwise_sdf(stages):
