@@ -101,10 +101,36 @@ Phases, one line each; any failure exits non-zero and prints no result:
    on the trained weights cold and warm: seconds per span, the mesh
    checks, the pruned occupancy card against CPU, the depth-filtered
    pruning once with its depth maps card against CPU;
-15. device times: each kernel's device time per launch (torch.profiler) at
+15. finetune: FinetuneTrainer (the per-shape -ft mode) at ReconConfig() on
+   phase 14's scene with phase 8's lod0 weights: the conditional volume of
+   the 32 source views, 20 steps of 512 rays cycling the 33 views (lr
+   5e-4), seconds per step cold and warm, peak memory, every metric
+   finite, the stage's 64^3 field and SDF MLP unchanged; the R=256 mesh of
+   the finetuned volume and SDF MLP coloured by the finetuned blending net
+   (the mesh checks of phase 8); one step's loss, metrics and every
+   gradient on the card (f32) against a CPU float64 run at full widths cut
+   to 9 source views, a 48^3 volume and 64 rays: within 1e-4 (metrics) and
+   1e-3 (gradients, relative L2) or 4x the CPU f32's own error;
+16. train_zero123: train_zero123.main at full width (DiffusionConfig(),
+   --batch_size 8 --max_steps 4 --log_every 1 --ckpt_every 2
+   --sample_every 2 --sample_views 4 --sample_steps 25) on phase 13's
+   weights through --init_params, from 6 synthetic objects x 12 RGBA views
+   at 300^2 (the port's PNG encoder; the LANCZOS resize runs) as folders
+   and as two tar shards: seconds per step, samples/s, peak memory, K1 /
+   dq / dkv launches equal to the code's count (32 / 16 / 16 per step, 16
+   K1 per UNet eval of the grid), metrics.jsonl, the 768x1024 grid and the
+   checkpoint (strict) read back; --model_shards 2 refused;
+17. eval: sweep.main --render_dir --clip_params (seeded ViT-L/14) on phase
+   9's mesh as its own GT (.glb), against itself (.glb), a copy with each
+   vertex moved 0.02 (.obj) and itself as .ply: the identical pair at the
+   sampling floor (Chamfer-L2 < 1e-4), F-score 1, clip_sim 1 within 1e-5;
+   the moved pair strictly worse; 3 x 24 renders read back; one view
+   rasterised on the card and the CPU, equal but at ties within 1e-9;
+   seconds per pair and per 24 views;
+18. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 to 14, which a profiled run can slow on the
+   after the timed phases 6 to 17, which a profiled run can slow on the
    host; then one warm reconstruct, one warm elevation estimate and one
    warm bf16 SAM encode under torch.profiler: device ms by kernel family
    (for SAM also the global blocks' share), the device's busy share, host
@@ -119,8 +145,8 @@ Then the kernels' JSON line (K1's launches are those of the CLI run, the
 main path from a raw image), the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout (the pipeline's and
 the CLI's files go to _smoke_out/, removed at the end of phases 9, 11 and
-12; the training scene and runs to _smoke_scenes/, removed at the end of
-phase 14).
+12; the training scene, the finetune, Zero123 and eval data and runs to
+_smoke_scenes/, removed after phase 17).
 """
 
 from __future__ import annotations
@@ -198,7 +224,8 @@ PLMS_STAGE1_EVALS = 77 + 1  # make_ddim_schedule(75) entries and PLMS's Heun ste
 # removed at the end of the phase
 PIPELINE_OUT = os.path.join(REPO, "_smoke_out")
 # phase 9's warm scene (stage1_8/, stage2_8/, pose.json) under data/shape0/,
-# the training runs' directories beside it (gitignored); removed by phase 14
+# the training runs' directories, the Zero123 data and the eval meshes
+# beside it (gitignored); removed after phase 17
 SCENES_OUT = os.path.join(REPO, "_smoke_scenes")
 # the recon train phase: the schedules' step of its card-against-CPU check
 # (past every ramp and the fg/bg gate, so that every loss term counts)
@@ -237,6 +264,38 @@ RECON_LOD1_SPANS = ("feature_maps", "conditional_volume", "prune", "feature_maps
                     "conditional_volume_lod1", "field_grid", "field_to_host", "marching_tets",
                     "colors")
 TRAIN_PHASES = ("train_forward", "train_backward", "train_optimizer")
+# the finetune phase: FinetuneTrainer at ReconConfig() on phase 14's scene
+FT_STEPS = 20
+FT_RAYS = 512
+FT_LR = 5e-4
+# its card-against-CPU step, cut so that the CPU's float64 run stays within
+# seconds, widths full: 9 source views (one per stage-1 view and the last),
+# a 48^3 volume, 64 rays of the reference view
+FT_CHECK = dict(views=[1, 5, 9, 13, 17, 21, 25, 29, 32], vol_dims=(48, 48, 48),
+                voxel_size=2.0 / 47.0, n_rays=64)
+# the card's f32 loss and metrics against the CPU float64 run: within
+# FT_LOSS_TOL relative or FT_FACTOR times the CPU f32's own worst error; its
+# gradients within FT_GRAD_TOL relative L2 or FT_FACTOR times the CPU f32's
+# worst (floor 1e-6 of the global norm), as phase 14 holds ReconTrainer's
+FT_LOSS_TOL = 1e-4
+FT_GRAD_TOL = 1e-3
+FT_FACTOR = 4.0
+# the train_zero123 phase: synthetic Objaverse renders, resized to 256^2
+Z123_OBJECTS = 6
+Z123_VIEWS = 12
+Z123_SIZE = 300
+Z123_STEPS = 4
+Z123_SAMPLE_EVERY = 2
+Z123_SAMPLE_STEPS = 25
+# the eval phase
+EVAL_MOVE = 0.02  # each vertex of the moved copy, in a seeded direction
+# the identical pair's Chamfer-L2 is the floor of two 16384-point samplings
+# (seeds 0 and 1) of one surface: ~1e-5 on a unit mesh
+EVAL_SAME_CD = 1e-4
+EVAL_CLIP_TOL = 1e-5  # the identical pair's clip_sim from 1
+# the rasteriser card vs CPU: pixels may differ only at depth ties or
+# pixel centres on an edge, within this (relative depth, barycentric)
+RASTER_TIE = 1e-9
 
 # (name, B, T=S, H, D) of every flash-attention call on the main path:
 # level 0 at the CFG batch of 4 views (8) and of 28 views (56), then
@@ -1089,8 +1148,8 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
     """One2345Pipeline(PipelineConfig()).run at full width on one card, with
     the seeded weights of phases 6 to 8, cold and warm: seconds per span,
     the elevation and the ring it picked, K1 launches, the mesh, the
-    artifacts (read back), peak memory.  Returns the warm run's K1
-    launches."""
+    artifacts (read back), peak memory.  Returns the warm run's mesh (for
+    the eval phase)."""
     import shutil
 
     import numpy as np
@@ -1180,7 +1239,7 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
         f"abs {rerun:.3e}, {len(warm.vertices)} vs {len(cold.vertices)} vertices; output "
         f"directory removed"
     )
-    return launches
+    return {"vertices": warm.vertices, "faces": warm.faces, "colors": warm.colors}
 
 
 def sam_input(h: int, w: int, seed: int, rgba: bool):
@@ -2664,9 +2723,7 @@ def phase_recon_train(smi):
     """Phase 14: reconstruction training on phase 9's scene, (a) card
     against CPU, (b) train_recon.main at full width, (c) the lod1
     reconstruct on the trained weights.  Returns (trainer, a full scene)
-    for the profile of phase 15."""
-    import shutil
-
+    for the profile of phase 18; the scene stays for phase 15."""
     import torch
 
     from one2345_tpu_torch.training.data import ReconScenesDataset
@@ -2675,23 +2732,20 @@ def phase_recon_train(smi):
     data = os.path.join(SCENES_OUT, "data")
     if not os.path.isfile(os.path.join(data, "shape0", "pose.json")):
         fail(f"recon train: no scene under {data} (phase 9 keeps one)")
-    try:
-        params = recon_params(seed=30, num_lods=2)
-        ds = ReconScenesDataset(data, n_rays=512)
-        scene = ds.sample_scene(0, generator=torch.Generator().manual_seed(3))
-        loaded = ds.load_scene(0)
-        log(
-            f"phase recon train: phase 9's scene ({len(scene['images'])} views at 256^2, "
-            f"{int(scene['rays_mask'].sum())} of 512 rays on the foreground), seeded weights of "
-            f"the 8 networks"
-        )
-        log("phase recon train (a): card f32 vs CPU f32 and f64, TF32 off, 9 views, 48^3 / "
-            "96^3, 64 rays, full widths: " + recon_train_check(params, scene))
-        trainer = recon_train_run(params, smi)
-        recon_lod1(trainer.state_dict()["params"], loaded["images"][1:], loaded["cameras"], smi)
-    finally:
-        shutil.rmtree(SCENES_OUT, ignore_errors=True)
-    log(f"phase recon train: {time.perf_counter() - t_phase:.1f} s in all; {SCENES_OUT} removed")
+    params = recon_params(seed=30, num_lods=2)
+    ds = ReconScenesDataset(data, n_rays=512)
+    scene = ds.sample_scene(0, generator=torch.Generator().manual_seed(3))
+    loaded = ds.load_scene(0)
+    log(
+        f"phase recon train: phase 9's scene ({len(scene['images'])} views at 256^2, "
+        f"{int(scene['rays_mask'].sum())} of 512 rays on the foreground), seeded weights of "
+        f"the 8 networks"
+    )
+    log("phase recon train (a): card f32 vs CPU f32 and f64, TF32 off, 9 views, 48^3 / "
+        "96^3, 64 rays, full widths: " + recon_train_check(params, scene))
+    trainer = recon_train_run(params, smi)
+    recon_lod1(trainer.state_dict()["params"], loaded["images"][1:], loaded["cameras"], smi)
+    log(f"phase recon train: {time.perf_counter() - t_phase:.1f} s in all")
     return trainer, scene
 
 
@@ -2750,7 +2804,500 @@ def phase_recon_train_profile(trainer, scene, smi):
     ))
 
 
+# ------------------------------------------------------------------ finetune
+def finetune_grads(trainer) -> dict:
+    """The trained tensors' gradients, float64 on the host."""
+    out = {"volume": trainer.volume.grad}
+    out.update({f"sdf_layer.{k}": p.grad for k, p in trainer.sdf_layer.named_parameters()})
+    out.update({f"blend.{k}": p.grad for k, p in trainer.blend_net.named_parameters()})
+    return {k: v.detach().cpu().double() for k, v in out.items()}
+
+
+def finetune_check(params, images, cams) -> str:
+    """One FinetuneTrainer step's loss, metrics and gradients on the card
+    (f32), on the CPU (f32) and on the CPU in float64 (the reference), TF32
+    off, at full widths cut to FT_CHECK: the same conditional volume (built
+    once on the CPU), the same rays, the same blending net."""
+    import torch
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.geometry.rays import random_rays_from_image
+    from one2345_tpu_torch.recon.finetune import FinetuneTrainer
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+
+    cfg = ReconConfig(vol_dims=FT_CHECK["vol_dims"], voxel_size=FT_CHECK["voxel_size"])
+    src = FT_CHECK["views"]
+    imgs = torch.as_tensor(images[src], dtype=torch.float32)
+    cpu = ReconStage(cfg, params=params, device="cpu")
+    out = cpu.conditional_volume(cpu.feature_maps(imgs), torch.as_tensor(cams["affines"][src]))
+    volume, mask = out["volume"], out["mask"]
+    img0 = torch.as_tensor(images[0], dtype=torch.float32)
+    fg = (~(img0 > 245 / 255.0).all(dim=-1)).float()
+    rays = random_rays_from_image(torch.Generator().manual_seed(5), FT_CHECK["n_rays"], img0,
+                                  torch.as_tensor(cams["intrinsics"][0]),
+                                  torch.as_tensor(cams["c2ws"][0]), mask=fg)
+    scene = {"rays_o": rays["rays_o"], "rays_v": rays["rays_v"],
+             "rays_color": rays["rays_color"], "near_far": cams["near_fars"][0],
+             "images": imgs, "w2cs": cams["w2cs"][src], "intrinsics": cams["intrinsics"][src]}
+    res, blend = {}, None
+    for run, dev, dtype in (("cpu", "cpu", torch.float32), ("card", "cuda", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        stage = ReconStage(cfg, params=params, device=dev)
+        for m in stage.modules().values():
+            m.to(dtype)
+        tr = FinetuneTrainer(stage, lr=FT_LR, dtype=dtype)
+        tr.init_state(volume, mask, blend)
+        if blend is None:
+            blend = {k: v.clone() for k, v in tr.blend_net.state_dict().items()}
+        t0 = time.perf_counter()
+        loss, metrics = tr.loss_fn(mask, scene)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[run] = ({k: float(v.detach()) for k, v in metrics.items()}, finetune_grads(tr),
+                    time.perf_counter() - t0)
+    (m_card, g_card, dt_card), (m_cpu, g_cpu, dt_cpu) = res["card"], res["cpu"]
+    m64, g64, dt64 = res["cpu64"]
+
+    def metric_errs(m):
+        return {k: abs(m[k] - v) / max(abs(v), 1e-30) for k, v in m64.items()}
+
+    me_card, me_cpu = metric_errs(m_card), metric_errs(m_cpu)
+    m_bound = max(FT_LOSS_TOL, FT_FACTOR * max(me_cpu.values()))
+    norm64 = math.sqrt(sum(float((g ** 2).sum()) for g in g64.values()))
+    floor = 1e-6 * norm64
+
+    def errs(g):
+        per = {k: float((g[k] - r).norm()) / max(float(r.norm()), floor) for k, r in g64.items()}
+        glob = math.sqrt(sum(float(((g[k] - r) ** 2).sum()) for k, r in g64.items())) / norm64
+        return per, glob
+
+    e_card, glob_card = errs(g_card)
+    e_cpu, glob_cpu = errs(g_cpu)
+    g_bound = max(FT_GRAD_TOL, FT_FACTOR * max(e_cpu.values()))
+    worst = max(e_card, key=e_card.get)
+    if (not all(math.isfinite(v) for v in m_card.values()) or max(me_card.values()) > m_bound
+            or e_card[worst] > g_bound
+            or glob_card > max(FT_GRAD_TOL, FT_FACTOR * glob_cpu)):
+        fail(f"finetune card vs CPU f64: metrics card {m_card}, CPU f64 {m64} (bound {m_bound}); "
+             f"worst gradient {worst} {e_card[worst]} (bound {g_bound}), global {glob_card} "
+             f"(CPU f32 {glob_cpu})")
+    return (
+        f"loss {m64['loss']:.6f}; metrics against CPU f64: card f32 worst "
+        f"{max(me_card.values()):.2e} ({max(me_card, key=me_card.get)}), CPU f32 worst "
+        f"{max(me_cpu.values()):.2e} (bound {m_bound:.2e}); {len(e_card)} gradients against CPU "
+        f"f64: card f32 worst {e_card[worst]:.2e} ({worst}), global {glob_card:.2e}; CPU f32 "
+        f"worst {max(e_cpu.values()):.2e}, global {glob_cpu:.2e} (bound {g_bound:.2e}); card "
+        f"{dt_card:.2f} s, CPU {dt_cpu:.2f} s, CPU f64 {dt64:.2f} s"
+    )
+
+
+def phase_finetune(recon_p, smi):
+    """Phase 15: FinetuneTrainer at ReconConfig() on phase 14's scene with
+    phase 8's lod0 weights: FT_STEPS steps of FT_RAYS rays, the views in turn
+    (examples/recon_quality.py:309-317), the stage untouched, the R=256 mesh
+    of the finetuned volume and SDF MLP coloured by the finetuned blending
+    net (:327-395); then the card-against-CPU step of ``finetune_check``."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.geometry.rays import random_rays_from_image
+    from one2345_tpu_torch.recon import mesh_extract
+    from one2345_tpu_torch.recon.finetune import FinetuneTrainer, pixel_warp
+    from one2345_tpu_torch.recon.pipeline import VERT_CHUNK, ReconStage
+    from one2345_tpu_torch.training.data import ReconScenesDataset
+
+    data = os.path.join(SCENES_OUT, "data")
+    if not os.path.isfile(os.path.join(data, "shape0", "pose.json")):
+        fail(f"finetune: no scene under {data} (phase 9 keeps one)")
+    sc = ReconScenesDataset(data).load_scene(0)
+    images, cams = sc["images"], sc["cameras"]
+    cfg = ReconConfig()
+    stage = ReconStage(cfg, params=recon_p, device="cuda")
+
+    def cam(key, sel=slice(1, 33)):
+        return torch.as_tensor(np.asarray(cams[key][sel]), dtype=torch.float32, device="cuda")
+
+    imgs = torch.as_tensor(images, dtype=torch.float32, device="cuda")
+    src = imgs[1:]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = stage.conditional_volume(stage.feature_maps(src), cam("affines"))
+    volume, mask = out["volume"], out["mask"]
+    field_before = stage.field_grid(volume, RECON_CHECK_RESOLUTION).cpu()
+    sdf_before = {k: v.clone() for k, v in stage.sdf_net.sdf_layer.state_dict().items()}
+    trainer = FinetuneTrainer(stage, lr=FT_LR, seed=3)
+    trainer.init_state(volume, mask)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    fg = (~(imgs > 245 / 255.0).all(dim=-1)).float()
+    Ks, c2ws, nfs = cam("intrinsics", slice(None)), cam("c2ws", slice(None)), cam("near_fars",
+                                                                                  slice(None))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    base = {"images": src, "w2cs": cam("w2cs"), "intrinsics": cam("intrinsics")}
+    secs, recs = [], []
+    for i in range(FT_STEPS):
+        v = i % len(imgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rays = random_rays_from_image(gen, FT_RAYS, imgs[v], Ks[v], c2ws[v], mask=fg[v])
+        scene = {**base, "rays_o": rays["rays_o"], "rays_v": rays["rays_v"],
+                 "rays_color": rays["rays_color"], "near_far": nfs[v]}
+        m = trainer.train_step(mask, scene)
+        m = {k: float(x) for k, x in m.items()}
+        secs.append(time.perf_counter() - t0)
+        if not all(math.isfinite(x) for x in m.values()):
+            fail(f"finetune step {i}: metrics {m}")
+        recs.append(m)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same_field = torch.equal(stage.field_grid(volume, RECON_CHECK_RESOLUTION).cpu(), field_before)
+    same_sdf = all(torch.equal(v, sdf_before[k])
+                   for k, v in stage.sdf_net.sdf_layer.state_dict().items())
+    if trainer.step != FT_STEPS or not same_field or not same_sdf:
+        fail(f"finetune: step {trainer.step}, the stage's field unchanged {same_field}, its SDF "
+             f"MLP unchanged {same_sdf}")
+    warm = secs[1:]
+    log(
+        f"phase finetune: FinetuneTrainer(lr={FT_LR}) at ReconConfig() (32 source views at "
+        f"256^2, 96^3 x 16 volume, SDF MLP {cfg.hidden_dim}, {cfg.n_samples} + "
+        f"{cfg.n_importance} samples), {FT_STEPS} steps of {FT_RAYS} rays cycling the 33 views: "
+        f"setup (features + volume) {setup_s:.3f} s, step 1 (cold) {secs[0]:.4f} s, warm mean "
+        f"{sum(warm) / len(warm):.4f} s (min {min(warm):.4f}, max {max(warm):.4f}); loss "
+        f"{recs[0]['loss']:.4f} -> {recs[-1]['loss']:.4f}, color {recs[0]['color']:.4f} -> "
+        f"{recs[-1]['color']:.4f}, every metric finite; the stage's 64^3 field and SDF MLP "
+        f"unchanged | peak mem {peak:.2f} GiB | {smi}"
+    )
+
+    # the mesh of the finetuned field, coloured by the finetuned blending net
+    t0 = time.perf_counter()
+    params_ft = dict(recon_p)
+    params_ft["sdf"] = {**recon_p["sdf"], **{f"sdf_layer.{k}": v.detach().cpu() for k, v in
+                                             trainer.sdf_layer.state_dict().items()}}
+    stage_ft = ReconStage(cfg, params=params_ft, device="cuda")
+    vol_ft = (trainer.volume * mask).detach()
+    R = RECON_RESOLUTION
+    u = stage_ft.gate_field(stage_ft.field_grid(vol_ft, R), mask).cpu().numpy()
+    verts_grid, faces = mesh_extract.marching_tetrahedra(u, cfg.mesh_threshold)
+    verts_n = mesh_extract.grid_to_world(verts_grid, (-1, -1, -1), (1, 1, 1), R)
+    colors = []
+    with torch.no_grad():
+        pts_all = torch.from_numpy(verts_n).cuda()
+        for i in range(0, len(pts_all), VERT_CHUNK):
+            pts = pts_all[i:i + VERT_CHUNK]
+            _, feat, grads = trainer.sdf_net.sdf_and_gradient(pts, vol_ft)
+            nrm = grads / torch.sqrt((grads ** 2).sum(dim=-1, keepdim=True) + 1e-12)
+            pix_c, pix_m = pixel_warp(pts, src, base["w2cs"], base["intrinsics"], (256, 256))
+            colors.append(trainer.blend_net(pts, nrm, nrm, feat, pix_c, pix_m.float())[0])
+    colors = torch.cat(colors).clamp(0, 1).cpu().numpy() if colors else np.zeros((0, 3))
+    mesh_s = time.perf_counter() - t0
+    mesh = {"vertices": mesh_extract.apply_mesh_transforms(verts_n, cams.get("scale_mat"),
+                                                            cams.get("trans_mat")),
+            "faces": faces, "colors": colors}
+    check_mesh("finetune", mesh)
+    log(
+        f"phase finetune: R={R} mesh of the finetuned volume and SDF MLP, coloured by the "
+        f"finetuned blending net: {len(verts_n)} vertices, {len(faces)} faces, colours in "
+        f"[{colors.min():.3f}, {colors.max():.3f}], {mesh_s:.3f} s"
+    )
+    del trainer, stage, stage_ft
+    log("phase finetune (card vs CPU): f32 vs CPU f32 and f64, TF32 off, "
+        f"{len(FT_CHECK['views'])} source views, {FT_CHECK['vol_dims'][0]}^3, "
+        f"{FT_CHECK['n_rays']} rays, full widths: " + finetune_check(recon_p, images, cams))
+
+
+# ------------------------------------------------------------ train_zero123
+def zero123_views():
+    """Z123_OBJECTS objects x Z123_VIEWS seeded RGBA renders at Z123_SIZE^2
+    (PNG bytes from the port's encoder) and their cameras (spherical_look_at_poses
+    on a 1.5 sphere, [3, 4])."""
+    import numpy as np
+
+    from one2345_tpu_torch.geometry.cameras import spherical_look_at_poses
+    from one2345_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(17)
+    yy, xx = np.mgrid[:Z123_SIZE, :Z123_SIZE] / Z123_SIZE
+    objects = []
+    for _ in range(Z123_OBJECTS):
+        polar = np.radians(rng.uniform(30, 120, Z123_VIEWS))
+        azim = np.radians(rng.uniform(0, 360, Z123_VIEWS))
+        c2ws = spherical_look_at_poses(polar, azim, radius=1.5)
+        views = []
+        for v in range(Z123_VIEWS):
+            cx, cy, r = rng.uniform(0.35, 0.65), rng.uniform(0.35, 0.65), rng.uniform(0.2, 0.35)
+            a = np.clip(255 * (r - np.hypot(xx - cx, yy - cy)) / 0.02, 0, 255)
+            rgb = np.stack([xx, yy, 0.5 + 0.5 * np.sin(9 * xx * yy + v)], -1) * 255
+            img = np.concatenate([rgb + rng.integers(0, 20, rgb.shape), a[..., None]], -1)
+            views.append((encode_png(np.clip(img, 0, 255).astype(np.uint8)),
+                          c2ws[v, :3, :4].astype(np.float32)))
+        objects.append(views)
+    return objects
+
+
+def write_zero123_data(root: str) -> tuple[str, str]:
+    """The objects as per-object folders (views/obj<i>/NNN.png, .npy) and as
+    two tar shards (shards/shard_00<k>.tar); returns the two roots."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    views_root, shards_root = os.path.join(root, "views"), os.path.join(root, "shards")
+    os.makedirs(shards_root)
+    objects = zero123_views()
+    per = len(objects) // 2
+    for k in range(2):
+        with tarfile.open(os.path.join(shards_root, f"shard_{k:03d}.tar"), "w") as tf:
+            for o in range(k * per, (k + 1) * per):
+                d = os.path.join(views_root, f"obj{o}")
+                os.makedirs(d)
+                for v, (png, c2w) in enumerate(objects[o]):
+                    buf = io.BytesIO()
+                    np.save(buf, c2w)
+                    for ext, payload in ((".png", png), (".npy", buf.getvalue())):
+                        with open(os.path.join(d, f"{v:03d}{ext}"), "wb") as fh:
+                            fh.write(payload)
+                        info = tarfile.TarInfo(f"obj{o}/{v:03d}{ext}")
+                        info.size = len(payload)
+                        tf.addfile(info, io.BytesIO(payload))
+    return views_root, shards_root
+
+
+def phase_train_zero123(params, smi):
+    """Phase 16: train_zero123.main at full width (DiffusionConfig(), B=8,
+    remat, bf16 autocast) on phase 13's seeded weights, from the folders and
+    from the shards: launches, seconds per step, samples/s, peak memory,
+    metrics.jsonl, the sample grid and the checkpoint read back;
+    --model_shards 2 refused."""
+    import shutil
+
+    import torch
+
+    from one2345_tpu_torch.core import checkpoint
+    from one2345_tpu_torch.core.config import DiffusionConfig
+    from one2345_tpu_torch.diffusion.ddim import trim_for_sample
+    from one2345_tpu_torch.diffusion.schedule import make_ddim_schedule
+    from one2345_tpu_torch.ops.flash_attention import flash_attention as f
+    from one2345_tpu_torch.training import train_zero123
+    from one2345_tpu_torch.utils.png import read_png
+
+    root = os.path.join(SCENES_OUT, "zero123")
+    t0 = time.perf_counter()
+    views_root, shards_root = write_zero123_data(root)
+    init = os.path.join(root, "init.pt")
+    checkpoint.save(init, params)
+    prep_s = time.perf_counter() - t0
+    cfg = DiffusionConfig()
+    evals = len(trim_for_sample(make_ddim_schedule(Z123_SAMPLE_STEPS, cfg.timesteps, cfg.ddim_eta,
+                                                   cfg.linear_start, cfg.linear_end)).timesteps)
+    samples = sum(1 for s in range(1, Z123_STEPS) if s % Z123_SAMPLE_EVERY == 0)
+    # every multi-token self-attention: 16 per UNet eval forward, twice that
+    # with the remat recompute, dq and dkv once per layer in the backward
+    expected = (32 * Z123_STEPS + 16 * evals * samples, 16 * Z123_STEPS, 16 * Z123_STEPS)
+    log(f"phase train_zero123: {Z123_OBJECTS} objects x {Z123_VIEWS} RGBA views at "
+        f"{Z123_SIZE}^2 (port PNG encoder) as folders and two tar shards, init params saved, "
+        f"in {prep_s:.1f} s; {samples} log_samples grid of {evals} UNet evals")
+    for name, data_root in (("folders", views_root), ("shards", shards_root)):
+        exp = os.path.join(root, f"exp_{name}")
+        argv = ["--data_root", data_root, "--init_params", init, "--batch_size", str(TRAIN_BATCH),
+                "--max_steps", str(Z123_STEPS), "--log_every", "1", "--ckpt_every", "2",
+                "--sample_every", str(Z123_SAMPLE_EVERY), "--sample_views", "4",
+                "--sample_steps", str(Z123_SAMPLE_STEPS), "--exp_dir", exp]
+        torch.cuda.reset_peak_memory_stats()
+        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train_zero123.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if counts != expected:
+            fail(f"train_zero123 ({name}): K1/dq/dkv launches {counts}, expected {expected}")
+        recs = read_metrics(os.path.join(exp, "metrics.jsonl"))
+        if [r["step"] for r in recs] != list(range(Z123_STEPS)) or not all(
+                math.isfinite(r["loss"]) and r["samples_per_sec"] > 0 for r in recs):
+            fail(f"train_zero123 ({name}): metrics {recs}")
+        grid = read_png(os.path.join(exp, "samples", f"step_{Z123_SAMPLE_EVERY:06d}.png"))
+        if grid.shape != (768, 1024, 3) or grid.std() == 0:
+            fail(f"train_zero123 ({name}): sample grid {grid.shape}, std {grid.std()}")
+        names = sorted(os.listdir(exp))
+        if names != ["metrics.jsonl", "samples", "step_000002", f"step_{Z123_STEPS:06d}"]:
+            fail(f"train_zero123 ({name}): {names} in the run's directory")
+        state = checkpoint.restore(os.path.join(exp, f"step_{Z123_STEPS:06d}"))
+        for key, module in trainer.modules.items():
+            module.load_state_dict(state[key], strict=True)
+        if trainer.step != Z123_STEPS or set(state) != {"unet", "cc_projection"}:
+            fail(f"train_zero123 ({name}): step {trainer.step}, checkpoint keys {sorted(state)}")
+        secs = [TRAIN_BATCH / r["samples_per_sec"] for r in recs]
+        log(
+            f"phase train_zero123 ({name}): main {' '.join(argv[4:-2])}: {total:.2f} s in all "
+            f"(stage, trainer and data set-up, steps, grid, checkpoints), seconds per step "
+            + ", ".join(f"{s:.3f}" for s in secs)
+            + f" (step 0 cold, step {Z123_SAMPLE_EVERY} with the grid), samples/s "
+            + ", ".join(f"{r['samples_per_sec']:.2f}" for r in recs)
+            + f", loss " + ", ".join(f"{r['loss']:.4f}" for r in recs)
+            + f" | K1/dq/dkv launches {counts} (expected {expected}) | grid 768x1024x3 read "
+            f"back, step_{Z123_STEPS:06d} reloaded strict | peak mem {peak:.2f} GiB | {smi}"
+        )
+        del trainer, state
+        shutil.rmtree(exp)
+    try:
+        train_zero123.main(["--data_root", views_root, "--model_shards", "2"])
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        fail("train_zero123: --model_shards 2 was not refused")
+    if "one card" not in refusal:
+        fail(f"train_zero123: --model_shards 2 refused with {refusal!r}")
+    log(f"phase train_zero123: --model_shards 2 refused: {refusal}")
+    return counts
+
+
+# --------------------------------------------------------------------- eval
+def covering_faces(verts, faces, K, w2c, x: int, y: int):
+    """(float64 depths, least barycentrics) of the faces whose triangle holds
+    the centre of pixel (x, y) within RASTER_TIE, by the rasteriser's
+    formulas (numpy, for the tie check)."""
+    import numpy as np
+
+    vc = verts.astype(np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
+    uvw = vc @ K.T
+    z = uvw[:, 2]
+    uv = uvw[:, :2] / np.maximum(z[:, None], 1e-6)
+    p, tz = uv[faces], z[faces]
+    m00, m01 = p[:, 1, 0] - p[:, 0, 0], p[:, 2, 0] - p[:, 0, 0]
+    m10, m11 = p[:, 1, 1] - p[:, 0, 1], p[:, 2, 1] - p[:, 0, 1]
+    det = m00 * m11 - m01 * m10
+    ok = (tz > 1e-4).all(axis=1) & (np.abs(det) >= 1e-12)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        d0, d1 = x + 0.5 - p[:, 0, 0], y + 0.5 - p[:, 0, 1]
+        b1 = (d0 * m11 - d1 * m01) / det
+        b2 = (-d0 * m10 + d1 * m00) / det
+    b = np.stack([1.0 - b1 - b2, b1, b2], axis=-1)
+    cover = ok & (b.min(axis=1) >= -RASTER_TIE)
+    return (b * tz).sum(axis=1)[cover], b.min(axis=1)[cover]
+
+
+def raster_card_vs_cpu(verts, faces, colors, view: int) -> str:
+    """One eval view rasterised on the card and on the CPU: equal pixels but
+    at ties (two covering faces' depths within RASTER_TIE relative, or the
+    pixel centre within RASTER_TIE of a covering face's edge)."""
+    import numpy as np
+
+    from one2345_tpu_torch.eval.render_harness import eval_cameras, rasterize
+
+    K, w2c = eval_cameras(256)[view]
+    t0 = time.perf_counter()
+    card = rasterize(verts, faces, colors, K, w2c, 256, device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = rasterize(verts, faces, colors, K, w2c, 256, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diff = (np.abs(card[0] - cpu[0]).max(axis=-1) > 0) | (card[1] != cpu[1])
+    for y, x in np.argwhere(diff):
+        depths, bmin = covering_faces(verts, faces, K, w2c, x, y)
+        d = np.sort(depths)
+        if not ((len(d) > 1 and d[1] - d[0] <= RASTER_TIE * d[0])
+                or (np.abs(bmin) <= RASTER_TIE).any()):
+            fail(f"eval: view {view} card vs CPU differs at pixel ({x}, {y}), no tie: depths "
+                 f"{d[:3]}, least barycentrics {bmin}")
+    return (f"view {view} at 256^2 card vs CPU: {int(diff.sum())} of {diff.size} pixels differ "
+            f"(all at ties within {RASTER_TIE}), {float(card[1].mean()):.4f} covered; card "
+            f"{card_s:.3f} s, CPU {cpu_s:.3f} s")
+
+
+def phase_eval(mesh, smi):
+    """Phase 17: sweep.main on phase 9's mesh as its own GT (.glb): the
+    identical pair (.glb), a copy with each vertex moved 0.02 in a seeded
+    direction (.obj) and the identical mesh as .ply (8-bit colours), with
+    --render_dir and the bare --clip_params (the seeded ViT-L/14 tower,
+    bf16); the renders read back, one view card against CPU, seconds per
+    pair and per 24 views."""
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.eval import metrics, render_harness, sweep
+    from one2345_tpu_torch.pipeline.runner import save_obj
+    from one2345_tpu_torch.recon.gltf import save_glb
+    from one2345_tpu_torch.recon.mesh_extract import save_ply
+    from one2345_tpu_torch.utils.png import read_png
+
+    v = np.asarray(mesh["vertices"], np.float32)
+    f, c = np.asarray(mesh["faces"], np.int32), np.asarray(mesh["colors"], np.float32)
+    root = os.path.join(SCENES_OUT, "eval")
+    pred, gt, renders = (os.path.join(root, d) for d in ("pred", "gt", "renders"))
+    os.makedirs(pred), os.makedirs(gt)
+    rng = np.random.default_rng(23)
+    step = rng.normal(size=v.shape)
+    moved = (v + EVAL_MOVE * step / np.linalg.norm(step, axis=1, keepdims=True)).astype(np.float32)
+    for name in ("same", "moved", "ply"):
+        save_glb(os.path.join(gt, f"{name}_gt.glb"), v, f, c)
+    save_glb(os.path.join(pred, "same_ours.glb"), v, f, c)
+    save_obj(os.path.join(pred, "moved_ours.obj"), moved, f, c)
+    save_ply(os.path.join(pred, "ply_ours.ply"), v, f, (c * 255).astype(np.uint8))
+    out = os.path.join(root, "table.json")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = sweep.main(["--pred_dir", pred, "--gt_dir", gt, "--out", out, "--render_dir",
+                        renders, "--clip_params"])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = {r["name"]: r for r in table["per_mesh"]}
+    same, mv = rows.get("same"), rows.get("moved")
+    if table["n_pairs"] != 3 or sorted(rows) != ["moved", "ply", "same"]:
+        fail(f"eval: pairs {sorted(rows)}")
+    if not (same["chamfer_l2"] < EVAL_SAME_CD and same["f_score"] == 1.0
+            and abs(same["clip_sim"] - 1.0) <= EVAL_CLIP_TOL):
+        fail(f"eval: the identical pair {same}")
+    if not (mv["chamfer_l2"] > same["chamfer_l2"] and mv["chamfer_l1"] > same["chamfer_l1"]
+            and mv["f_score"] <= same["f_score"] and mv["clip_sim"] < same["clip_sim"]):
+        fail(f"eval: the moved pair {mv} is not worse than the identical pair {same}")
+    with open(out) as fh:
+        if json.load(fh) != json.loads(json.dumps(table)):
+            fail("eval: the written table differs from the returned one")
+    for name in rows:
+        pngs = sorted(os.listdir(os.path.join(renders, name)))
+        if pngs != [f"{i:03d}.png" for i in range(24)]:
+            fail(f"eval: renders of {name}: {pngs}")
+        shapes = {read_png(os.path.join(renders, name, p)).shape for p in pngs}
+        if shapes != {(256, 256, 3)}:
+            fail(f"eval: render shapes of {name}: {shapes}")
+    vn = metrics.normalize_to_unit_box(v, 0.8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    views = render_harness.render_eval_views(*sweep.load_mesh(os.path.join(pred, "same_ours.glb")))
+    torch.cuda.synchronize()
+    views_s = time.perf_counter() - t0
+    again = read_png(os.path.join(renders, "same", "005.png"))
+    if not np.array_equal(again, (np.clip(views[5], 0, 1) * 255).astype(np.uint8)):
+        fail("eval: render 005 of the identical pair does not read back as rendered")
+    t0 = time.perf_counter()
+    metrics.evaluate_mesh_pair(moved, f, v, f)
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    log(
+        f"phase eval: sweep.main --render_dir --clip_params (seeded ViT-L/14, bf16) on phase 9's "
+        f"mesh ({len(v)} vertices, {len(f)} faces) as its own GT: {total:.2f} s for 3 pairs "
+        f"({total / 3:.2f} s per pair with 48 renders and 48 CLIP embeddings), identical pair "
+        f"chamfer_l2 {same['chamfer_l2']:.3e} (sampling floor, < {EVAL_SAME_CD}), f_score "
+        f"{same['f_score']}, clip_sim {same['clip_sim']:.7f}; moved by {EVAL_MOVE}: chamfer_l2 "
+        f"{mv['chamfer_l2']:.3e}, chamfer_l1 {mv['chamfer_l1']:.3e}, f_score "
+        f"{mv['f_score']:.4f}, clip_sim {mv['clip_sim']:.5f}; .ply (8-bit colours read as "
+        f"0-255, as the JAX sweep reads them): clip_sim {rows['ply']['clip_sim']:.5f}; 3 x 24 "
+        f"renders read back | evaluate_mesh_pair alone {pair_s:.3f} s (16384 points, float64 "
+        f"nearest neighbours), render_eval_views 24 views at 256^2 {views_s:.3f} s | peak mem "
+        f"{peak:.2f} GiB | {smi}"
+    )
+    log("phase eval: " + raster_card_vs_cpu(vn, f, c, 5))
+
+
 def main() -> int:
+    import shutil
+
     try:
         import torch
     except ImportError:
@@ -2776,7 +3323,7 @@ def main() -> int:
     recon_stage, recon_images, recon_cams, recon_p = phase_recon(s2, smi)
     views = s2[0].clone()
     del s2
-    phase_pipeline(params, recon_p, loftr_w, smi)
+    pipeline_mesh = phase_pipeline(params, recon_p, loftr_w, smi)
     sam_stage, sam_w, sam_image = phase_preprocess(params, smi)
     stages = {"zero123": params, "recon": recon_p, "loftr": loftr_w}
     cli_run_ddim = phase_cli(stages, sam_w, smi)
@@ -2784,7 +3331,14 @@ def main() -> int:
     card_int8_unet = phase_fast_modes(stage, unet_weights, stages, sam_w, cli_run_ddim, smi)
     del sam_w, cli_run_ddim
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
-    recon_trainer, recon_scene = phase_recon_train(smi)
+    try:
+        recon_trainer, recon_scene = phase_recon_train(smi)
+        phase_finetune(recon_p, smi)
+        phase_train_zero123(params, smi)
+        phase_eval(pipeline_mesh, smi)
+    finally:
+        shutil.rmtree(SCENES_OUT, ignore_errors=True)
+    log(f"{SCENES_OUT} removed")
     phase_device_times(rows, bwd_rows)
     phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
     phase_elevation_profile(estimator, views, smi)

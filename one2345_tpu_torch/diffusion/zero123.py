@@ -27,6 +27,8 @@ the JAX noise through it).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
@@ -203,7 +205,6 @@ class Zero123Stage:
         concat = moments_mode(self.encoder(cond_images))
         return ctx, concat
 
-    @torch.inference_mode()
     def sample_views(self, cond_images, delta_x_deg, delta_y_deg, seed: int,
                      steps: int | None = None, cfg_scale: float | None = None,
                      sampler: str | None = None, noise_ids=None,
@@ -211,12 +212,25 @@ class Zero123Stage:
         """Generate B novel views in one batch: [B, 256, 256, 3] in [0, 1].
 
         :param cond_images: [B, 256, 256, 3] in [-1, 1]
+        :param delta_x_deg, delta_y_deg: the views' polar and azimuth
+            offsets in degrees (``pose_tokens``)
         :param sampler: 'ddim', 'plms' or 'dpmpp'; None -> config.sampler
         :param noise_ids: int per view that keys its noise (default: batch
             position)
         :param noise_fn: optional (draw, view_ids, per-view shape) -> noise
             [B, *shape], replacing the per-view generators
         """
+        T = pose_tokens(delta_x_deg, delta_y_deg)
+        return self.sample_tokens(cond_images, T, seed, steps, cfg_scale, sampler, noise_ids,
+                                  noise_fn)
+
+    @torch.inference_mode()
+    def sample_tokens(self, cond_images, T, seed: int, steps: int | None = None,
+                      cfg_scale: float | None = None, sampler: str | None = None,
+                      noise_ids=None, noise_fn=None) -> torch.Tensor:
+        """``sample_views`` conditioned on given pose tokens ``T`` [B, 1, 4]
+        (a training batch's own, as ``_sample_views_jit`` takes them):
+        [B, 256, 256, 3] in [0, 1]."""
         cfg = self.config
         cfg_scale = cfg.cfg_scale if cfg_scale is None else cfg_scale
         steps = steps or cfg.ddim_steps_stage1
@@ -237,7 +251,7 @@ class Zero123Stage:
                     noise = np.asarray(noise)
                 return torch.as_tensor(noise, dtype=torch.float32, device=self.device)
 
-        T = torch.as_tensor(pose_tokens(delta_x_deg, delta_y_deg), device=self.device)
+        T = torch.as_tensor(T, dtype=torch.float32, device=self.device)
         ctx, concat = self.encode_conditioning(cond, T)
         # CFG double batch: [uncond ++ cond], zero unconditional inputs
         ctx_in = torch.cat([torch.zeros_like(ctx), ctx])
@@ -258,6 +272,22 @@ class Zero123Stage:
             x = (plms_sample if sampler == "plms" else dpmpp_sample)(eps_fn, x, sched)
         imgs = self.decoder(x / self.scale_factor)
         return torch.clamp((imgs + 1.0) / 2.0, 0.0, 1.0)
+
+    @contextlib.contextmanager
+    def swapped_weights(self, states: dict):
+        """Run with {module name: state dict} loaded into the stage's
+        modules (cast to their dtypes, e.g. a trainer's f32 EMA weights
+        into the bf16 UNet, as flax casts f32 params at use); the modules'
+        own weights are restored on the way out, bit for bit."""
+        saved = {name: {k: v.clone() for k, v in getattr(self, name).state_dict().items()}
+                 for name in states}
+        try:
+            for name, state in states.items():
+                getattr(self, name).load_state_dict(state, strict=True)
+            yield self
+        finally:
+            for name, state in saved.items():
+                getattr(self, name).load_state_dict(state, strict=True)
 
     # ---------------------------------------------------------- stage entries
     def stage1(self, input_image, seed: int, indices=None, steps=None, noise_fn=None):

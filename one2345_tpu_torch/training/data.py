@@ -4,18 +4,24 @@ Counterpart of ``one2345_tpu/training/data.py``:
 - the pose token T = (d_polar, sin d_azimuth, cos d_azimuth, d_radius)
   between a conditioning and a target view (ObjaverseData.get_T,
   ldm/data/simple.py);
+- the Zero123 finetune readers (ObjaverseData, ldm/data/simple.py:208):
+  ``ObjaverseViewsDataset`` over per-object view folders and
+  ``ObjaverseTarShards`` over tar shards read in stream mode with the
+  standard library's ``tarfile`` (the reference's webdataset ingestion);
+  they draw from ``np.random.default_rng(seed)`` in the JAX readers'
+  order, so the same files and seed give the same batches bit for bit;
 - ``ReconScenesDataset``: reconstruction-training scenes from shape
   directories in the layout ``One2345Pipeline.run`` writes (stage1_8/,
-  stage2_8/, pose.json); views are read with the port's PNG reader and
-  resized with its LANCZOS (PIL's) when their size differs;
+  stage2_8/, pose.json);
 - ``Prefetcher``: a background thread that keeps the next items ready.
 
-The Zero123 dataset readers (``ObjaverseViewsDataset``,
-``ObjaverseTarShards``) are not ported.
+Views are read with the port's PNG reader and resized with its LANCZOS
+(PIL's, RGBA premultiplied as PIL resamples it) when their size differs.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import queue
@@ -63,6 +69,152 @@ def _load_view(path: str, size: int = 256, bg: float = 1.0) -> np.ndarray:
     from one2345_tpu_torch.utils.png import read_png
 
     return _decode_view(read_png(path), size, bg)
+
+
+def _c2w(m: np.ndarray) -> np.ndarray:
+    """A [3, 4] or [4, 4] camera-to-world matrix as [4, 4]."""
+    if m.shape == (3, 4):
+        m = np.concatenate([m, [[0, 0, 0, 1]]], axis=0)
+    return m
+
+
+def _stack(samples: list[dict]) -> dict:
+    return {k: np.stack([s[k] for s in samples]).astype(np.float32) for k in samples[0]}
+
+
+class ObjaverseViewsDataset:
+    """Zero123 finetune samples from a root of per-object view folders:
+    ``root/<uid>/000.png ... 011.png`` (RGBA renders) and ``000.npy ...
+    011.npy`` ([3, 4] or [4, 4] camera-to-world matrices), the reference's
+    views_whole_sphere layout.  A sample is a random object and two
+    distinct random views of it: {'image_cond', 'image_target' [size,
+    size, 3] in [-1, 1], 'T' [1, 4] the pose token}."""
+
+    def __init__(self, root_dir: str, total_views: int = 12, image_size: int = 256,
+                 paths: list[str] | None = None, seed: int = 0):
+        self.root = root_dir
+        if paths is None:
+            paths = sorted(
+                d for d in os.listdir(root_dir) if os.path.isdir(os.path.join(root_dir, d))
+            )
+        self.paths = paths
+        self.total_views = total_views
+        self.image_size = image_size
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def sample(self, idx: int | None = None) -> dict:
+        if idx is None:
+            idx = int(self.rng.integers(len(self.paths)))
+        obj = os.path.join(self.root, self.paths[idx])
+        ic, it = self.rng.choice(self.total_views, 2, replace=False)
+
+        def cam(i):
+            return _c2w(np.load(os.path.join(obj, f"{i:03d}.npy")))
+
+        return {
+            "image_cond": _load_view(os.path.join(obj, f"{ic:03d}.png"), self.image_size),
+            "image_target": _load_view(os.path.join(obj, f"{it:03d}.png"), self.image_size),
+            "T": relative_pose_token(cam(ic), cam(it))[None],
+        }
+
+    def batches(self, batch_size: int) -> Iterator[dict]:
+        """Endless [B, ...] f32 batches of ``sample()``."""
+        while True:
+            yield _stack([self.sample() for _ in range(batch_size)])
+
+
+class ObjaverseTarShards:
+    """Zero123 finetune samples streamed from tar shards (the reference's
+    webdataset ingestion, ObjaverseDataModuleFromConfig, ldm/data/simple.py:168).
+
+    Shard layout (views_release packing): members ``<uid>/<idx>.png`` (RGBA
+    render) and ``<uid>/<idx>.npy`` ([3, 4] or [4, 4] camera-to-world).  An
+    object is complete when the next uid starts (or its shard ends); objects
+    with fewer than two views holding both files are skipped.  A shuffle
+    buffer of ``shuffle_buffer`` objects decorrelates neighbours: once full,
+    each new object sends a random one out.  The shards are walked in a
+    random order each pass; with ``loop=False`` one pass, then the buffer
+    drains in random order."""
+
+    def __init__(self, shard_paths: list[str], image_size: int = 256,
+                 shuffle_buffer: int = 256, seed: int = 0, loop: bool = True):
+        if not shard_paths:
+            raise ValueError("no shards given")
+        self.shards = list(shard_paths)
+        self.image_size = image_size
+        self.shuffle_buffer = shuffle_buffer
+        self.loop = loop
+        self.rng = np.random.default_rng(seed)
+
+    def _iter_objects(self) -> Iterator[dict]:
+        """{'pngs': {idx: bytes}, 'cams': {idx: [4, 4]}} per object."""
+        import tarfile
+
+        while True:
+            order = list(self.shards)
+            self.rng.shuffle(order)
+            for shard in order:
+                with tarfile.open(shard, "r|*") as tf:  # a stream: no seeks
+                    current_uid, pngs, cams = None, {}, {}
+                    for m in tf:
+                        if not m.isfile() or "/" not in m.name:
+                            continue
+                        uid, fname = m.name.split("/", 1)
+                        if current_uid is not None and uid != current_uid:
+                            if pngs and cams:
+                                yield {"pngs": pngs, "cams": cams}
+                            pngs, cams = {}, {}
+                        current_uid = uid
+                        stem, ext = os.path.splitext(fname)
+                        data = tf.extractfile(m).read()
+                        if ext == ".png":
+                            pngs[stem] = data
+                        elif ext == ".npy":
+                            cams[stem] = _c2w(np.load(io.BytesIO(data)))
+                    if pngs and cams:
+                        yield {"pngs": pngs, "cams": cams}
+            if not self.loop:
+                return
+
+    def samples(self) -> Iterator[dict]:
+        from one2345_tpu_torch.utils.png import decode_png
+
+        def emit(obj):
+            keys = sorted(set(obj["pngs"]) & set(obj["cams"]))
+            ic, it = self.rng.choice(len(keys), 2, replace=False)
+            kc, kt = keys[int(ic)], keys[int(it)]
+            return {
+                "image_cond": _decode_view(decode_png(obj["pngs"][kc]), self.image_size),
+                "image_target": _decode_view(decode_png(obj["pngs"][kt]), self.image_size),
+                "T": relative_pose_token(obj["cams"][kc], obj["cams"][kt])[None],
+            }
+
+        buf: list[dict] = []
+        for obj in self._iter_objects():
+            if len(set(obj["pngs"]) & set(obj["cams"])) < 2:
+                continue
+            buf.append(obj)
+            if len(buf) < self.shuffle_buffer:
+                continue
+            yield emit(buf.pop(int(self.rng.integers(len(buf)))))
+        while buf:  # one pass (loop=False): drain the buffer
+            yield emit(buf.pop(int(self.rng.integers(len(buf)))))
+
+    def batches(self, batch_size: int) -> Iterator[dict]:
+        """[B, ...] f32 batches of ``samples()``; ends with the samples (a
+        short last batch is dropped)."""
+        it = self.samples()
+        while True:
+            samples = []
+            for _ in range(batch_size):
+                try:
+                    samples.append(next(it))
+                except StopIteration:
+                    return
+            yield _stack(samples)
 
 
 class ReconScenesDataset:

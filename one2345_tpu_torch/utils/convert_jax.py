@@ -6,7 +6,8 @@
 module, which the port's modules load with ``strict=True``;
 ``trainable_from_jax`` does the same for the trainer's trainable tree, and
 ``recon_from_jax`` for ``ReconStage.params`` ('fusion', 'sdf', 'render',
-'variance' and the lod1 trees), ``loftr_from_jax`` for ``LoFTRMatcher.params`` and
+'variance' and the lod1 trees), ``finetune_from_jax`` for the finetune's
+blending net, ``loftr_from_jax`` for ``LoFTRMatcher.params`` and
 ``sam_from_jax`` for ``SamStage.params``.
 
 The port names its submodules after the flax scopes, so the mapping is
@@ -99,10 +100,15 @@ def zero123_from_jax(params: Mapping) -> dict:
         **trainable_from_jax(params),
         "encoder": flax_to_state_dict(params["encoder"]),
         "decoder": flax_to_state_dict(params["decoder"]),
-        "clip": flax_to_state_dict(
-            params["clip"], free=("class_embedding", "positional_embedding", "proj")
-        ),
+        "clip": clip_from_jax(params["clip"]),
     }
+
+
+def clip_from_jax(variables: Mapping) -> dict:
+    """JAX ``CLIPVisionTower`` variables -> the state dict of
+    ``diffusion.clip.CLIPVisionTower`` (the stage's tower, the eval's
+    ``ClipScorer``)."""
+    return flax_to_state_dict(variables, free=("class_embedding", "positional_embedding", "proj"))
 
 
 RECON_KEYS = ("fusion", "sdf", "render", "variance",
@@ -116,6 +122,14 @@ def recon_from_jax(params: Mapping) -> dict:
     {'fusion_lod1', 'sdf_lod1', 'render_lod1', 'variance_lod1'}.  A tree of
     the JAX trainer's params or gradients maps the same way."""
     return {name: flax_to_state_dict(params[name]) for name in RECON_KEYS if name in params}
+
+
+def finetune_from_jax(blend_params: Mapping) -> dict:
+    """The JAX ``FinetuneState.blend_params`` (``BlendingRenderingNetwork``
+    variables) -> the state dict of ``recon.finetune.BlendingRenderingNetwork``
+    (``FinetuneTrainer.init_state(blend_params=...)``).  A tree of its
+    gradients maps the same way."""
+    return flax_to_state_dict(blend_params)
 
 
 def loftr_from_jax(params: Mapping) -> dict:

@@ -162,3 +162,39 @@ def test_int8_conv_matches_cpu_on_card(k, stride, padding, cin, cout, hw, cuda_d
     assert torch.equal(xs.cpu(), ref_xs)
     ref = cpu(x).float()
     assert max_err(out.float().cpu(), ref) <= 2 ** -8 * float(ref.abs().max())
+
+
+def _overlapping_triangles(seed: int, n_faces: int):
+    gen = torch.Generator().manual_seed(seed)
+    centres = torch.rand(n_faces, 1, 3, generator=gen) * 0.7 - 0.35
+    v = (centres + 0.12 * torch.randn(n_faces, 3, 3, generator=gen)).reshape(-1, 3)
+    f = torch.arange(3 * n_faces, dtype=torch.int32).reshape(-1, 3)
+    return v.numpy(), f.numpy(), torch.rand(3 * n_faces, 3, generator=gen).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view,shade", [(0, True), (7, False), (19, True)])
+def test_rasterizer_on_card_matches_cpu(view, shade, cuda_device):
+    """The batched z-buffer on the card against the same code on the CPU:
+    both compute the barycentrics and depths with the same float64 ops, so
+    the pixels are equal (a pixel may differ only at a depth tie within
+    1e-9, which these random faces do not produce)."""
+    from one2345_tpu_torch.eval.render_harness import eval_cameras, rasterize
+
+    v, f, c = _overlapping_triangles(view, 400)
+    K, w2c = eval_cameras(256)[view]
+    rgb, alpha = rasterize(v, f, c, K, w2c, 256, shade, device=cuda_device)
+    ref_rgb, ref_alpha = rasterize(v, f, c, K, w2c, 256, shade, device="cpu")
+    assert 0.05 < alpha.mean() < 0.95
+    assert (alpha == ref_alpha).all()
+    assert float(abs(rgb - ref_rgb).max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_nn_dists_on_card_match_cpu(cuda_device):
+    from one2345_tpu_torch.eval.metrics import nn_dists
+
+    gen = torch.Generator().manual_seed(3)
+    a, b = (torch.randn(n, 3, generator=gen).numpy() for n in (3000, 2000))
+    card, cpu = nn_dists(a, b, cuda_device), nn_dists(a, b, "cpu")
+    assert float(abs(card - cpu).max()) <= 1e-12 * float(abs(cpu).max())

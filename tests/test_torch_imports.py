@@ -78,6 +78,12 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.training.losses",
         "one2345_tpu_torch.training.recon_trainer",
         "one2345_tpu_torch.training.train_recon",
+        "one2345_tpu_torch.recon.finetune",
+        "one2345_tpu_torch.training.train_zero123",
+        "one2345_tpu_torch.eval.metrics",
+        "one2345_tpu_torch.eval.render_harness",
+        "one2345_tpu_torch.eval.clip_metric",
+        "one2345_tpu_torch.eval.sweep",
     ):
         assert module in report["modules"]
     leaked = [
@@ -135,6 +141,31 @@ def test_recon_training_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_recon.main(["--data_root", str(tmp_path), "--exp_dir", str(tmp_path / "exp")])
     assert not (tmp_path / "exp").exists()
+
+
+def test_finetune_zero123_training_and_eval_default_to_the_card(tmp_path):
+    """FinetuneTrainer follows its stage (ReconStage() is on the card);
+    train_zero123.main, ClipScorer, the sweep and the rasteriser resolve
+    device=None to the card."""
+    from one2345_tpu_torch.eval import metrics, render_harness, sweep
+    from one2345_tpu_torch.eval.clip_metric import ClipScorer
+    from one2345_tpu_torch.training import train_zero123
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_zero123.main(["--data_root", str(tmp_path), "--exp_dir", str(tmp_path / "exp")])
+    assert not (tmp_path / "exp").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClipScorer()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sweep.main(["--pred_dir", str(tmp_path), "--gt_dir", str(tmp_path)])
+    K, w2c = render_harness.eval_cameras(8)[0]
+    tri = np.eye(3, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_harness.rasterize(tri, np.array([[0, 1, 2]]), tri, K, w2c, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        metrics.chamfer_distance(tri, tri)
 
 
 def test_marching_tets_source_is_the_jax_package_s():
