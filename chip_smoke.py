@@ -124,13 +124,24 @@ Phases, one line each; any failure exits non-zero and prints no result:
    9's mesh as its own GT (.glb), against itself (.glb), a copy with each
    vertex moved 0.02 (.obj) and itself as .ply: the identical pair at the
    sampling floor (Chamfer-L2 < 1e-4), F-score 1, clip_sim 1 within 1e-5;
-   the moved pair strictly worse; 3 x 24 renders read back; one view
+   the moved pair strictly worse; the .ply pair (8-bit colours read as
+   [0, 1]) at clip_sim >= 0.99; 3 x 24 renders read back; one view
    rasterised on the card and the CPU, equal but at ties within 1e-9;
    seconds per pair and per 24 views;
-18. device times: each kernel's device time per launch (torch.profiler) at
+18. convert: phase 11's weights written as the reference's checkpoint
+   files (zero123-xl.ckpt as a Lightning LatentDiffusion file, the bare
+   sam_vit_h_4b8939.pth, indoor_ds_new.ckpt under 'matcher.',
+   ckpt_215000.pth with InPlaceABN gammas and torchsparse kernels, an HF
+   safety-checker state dict) under _smoke_scenes/convert/, converted by
+   utils/convert_cli.py in its own process into one parameter file, which
+   reads back equal to phase 11's tree bit for bit; the UNet's EMA remap at
+   full width in memory; cli.main --sampler dpmpp --params on that file
+   (1792 K1 launches): the same stage images and mesh as phase 12's
+   --sampler dpmpp run on the in-memory tree; seconds and bytes per file;
+19. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 to 17, which a profiled run can slow on the
+   after the timed phases 6 to 18, which a profiled run can slow on the
    host; then one warm reconstruct, one warm elevation estimate and one
    warm bf16 SAM encode under torch.profiler: device ms by kernel family
    (for SAM also the global blocks' share), the device's busy share, host
@@ -146,7 +157,7 @@ main path from a raw image), the nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout (the pipeline's and
 the CLI's files go to _smoke_out/, removed at the end of phases 9, 11 and
 12; the training scene, the finetune, Zero123 and eval data and runs to
-_smoke_scenes/, removed after phase 17).
+_smoke_scenes/, removed after phase 18).
 """
 
 from __future__ import annotations
@@ -224,8 +235,9 @@ PLMS_STAGE1_EVALS = 77 + 1  # make_ddim_schedule(75) entries and PLMS's Heun ste
 # removed at the end of the phase
 PIPELINE_OUT = os.path.join(REPO, "_smoke_out")
 # phase 9's warm scene (stage1_8/, stage2_8/, pose.json) under data/shape0/,
-# the training runs' directories, the Zero123 data and the eval meshes
-# beside it (gitignored); removed after phase 17
+# the training runs' directories, the Zero123 data, the eval meshes and
+# the reference-format checkpoints beside it (gitignored); removed after
+# phase 18
 SCENES_OUT = os.path.join(REPO, "_smoke_scenes")
 # the recon train phase: the schedules' step of its card-against-CPU check
 # (past every ramp and the fg/bg gate, so that every loss term counts)
@@ -293,6 +305,10 @@ EVAL_MOVE = 0.02  # each vertex of the moved copy, in a seeded direction
 # (seeds 0 and 1) of one surface: ~1e-5 on a unit mesh
 EVAL_SAME_CD = 1e-4
 EVAL_CLIP_TOL = 1e-5  # the identical pair's clip_sim from 1
+# the identical mesh as .ply: its colours truncated to 8 bits (up to 1/255
+# off) and read back scaled by 1/255, so its renders are within 1/255 of the
+# .glb's and its clip_sim near 1
+EVAL_PLY_CLIP = 0.99
 # the rasteriser card vs CPU: pixels may differ only at depth ties or
 # pixel centres on an edge, within this (relative depth, barycentric)
 RASTER_TIE = 1e-9
@@ -1516,15 +1532,14 @@ def cli_input():
 
 
 def cli_params(params, sam_w):
-    """The CLI's parameter tree: the stages' seeded weights, SAM's, and a
-    safety gate with seeded concept embeddings that do not flag."""
-    import numpy as np
-
+    """The CLI's parameter tree: the stages' seeded weights, SAM's, and the
+    safety gate of ``safety_state_dict()`` (seeded concept and special-care
+    embeddings that do not flag)."""
     from one2345_tpu_torch.segmentation.safety import SafetyChecker
 
-    rng = np.random.default_rng(46)
-    safety = SafetyChecker(rng.standard_normal((3, 768)).astype(np.float32),
-                           np.full(3, 0.5, np.float32))
+    sd = safety_state_dict()
+    safety = SafetyChecker(sd["concept_embeds"], sd["concept_embeds_weights"],
+                           sd["special_care_embeds"], sd["special_care_embeds_weights"])
     return dict(params, sam=sam_w, safety=safety)
 
 
@@ -1726,7 +1741,8 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
     phase-11 PNG with --sampler dpmpp --quant int8 and with --sampler dpmpp,
     one PLMS stage-1 call, the quantized convs and the int8 UNet card
     against CPU, the sampler update math card against CPU, and the int8 and
-    bf16 UNet evals timed.  Returns the card's int8 UNet."""
+    bf16 UNet evals timed.  Returns the card's int8 UNet and the --sampler
+    dpmpp run (``cli_run``'s result)."""
     import shutil
 
     import torch
@@ -1739,12 +1755,14 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
     expected = 16 * DPMPP_EVALS
     ddim_res, ddim_total = ddim_run[0], ddim_run[1]
     n_qconv = None
+    runs = {}
     try:
         img_path, raw = cli_input()
         for flags in (["--sampler", "dpmpp", "--quant", "int8"], ["--sampler", "dpmpp"]):
             q.int8_matmul.launch_count = 0
-            run = cli_run("fast modes cli " + " ".join(flags), flags, img_path, raw,
-                          cli_params(params, sam_w), expected)
+            run = runs[" ".join(flags)] = cli_run(
+                "fast modes cli " + " ".join(flags), flags, img_path, raw,
+                cli_params(params, sam_w), expected)
             gemms = q.int8_matmul.launch_count
             if "int8" in flags:
                 n_qconv = gemms // DPMPP_EVALS
@@ -1894,7 +1912,7 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
                 times.append(f"B={B} {label} {time_ms(lambda: net(xb, tb, cb), 10, warmup=2):.2f}")  # noqa: B023
     log("phase fast modes: UNet eval ms (CUDA events, 10 evals after 2): " + ", ".join(times)
         + f" | {smi}")
-    return card_unet
+    return card_unet, runs["--sampler dpmpp"]
 
 
 def phase_fast_modes_profile(stage, card_unet, smi):
@@ -1914,11 +1932,20 @@ def phase_fast_modes_profile(stage, card_unet, smi):
         xc = x.cuda()
         card(xc)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            card(xc)
-            torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        gemm = [e for e in device if e.name == "int8_gemm"]
+        # the profiler can drop a call's records, all of them at times (an
+        # H100 run once recorded no device event of this call): a run that
+        # recorded no kernel or no int8_gemm range is made again, up to
+        # three runs in all, and the check below reads the first complete one
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                card(xc)
+                torch.cuda.synchronize()
+            device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            gemm = [e for e in device if e.name == "int8_gemm"]
+            if gemm and any(e.name not in INT8_RANGES for e in device):
+                break
+        else:
+            fail(f"int8 conv {name}: three profiled calls recorded no int8_gemm range with kernels")
         kernels = [e.name for e in device if e.name not in INT8_RANGES]
         inside = [e.name for e in device if e.name not in INT8_RANGES and gemm
                   and gemm[0].time_range.start <= e.time_range.start < gemm[0].time_range.end]
@@ -2199,17 +2226,18 @@ def profiled(fn, span_names=()):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ranges = {e.name: e.time_range for e in device if e.name in span_names}
-    events = [e for e in device if e.name not in span_names]
-    if not events:
-        fail("profiler: no device events in a profiled call")
-    return wall_ms, events, ranges
+    for _ in range(3):  # the profiler can drop all of a call's device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ranges = {e.name: e.time_range for e in device if e.name in span_names}
+        events = [e for e in device if e.name not in span_names]
+        if events:
+            return wall_ms, events, ranges
+    fail("profiler: no device events in three profiled calls")
 
 
 def phase_recon_profile(stage, images, cams, smi):
@@ -2221,10 +2249,12 @@ def phase_recon_profile(stage, images, cams, smi):
     from one2345_tpu_torch.core.profiling import Timer
 
     timer = Timer(device="cuda")
-    wall_ms, events, ranges = profiled(
-        lambda: stage.reconstruct(images, cams, resolution=RECON_RESOLUTION, timer=timer),
-        RECON_SPANS,
-    )
+
+    def call():
+        timer.spans.clear()  # a profiled call made again starts its spans anew
+        stage.reconstruct(images, cams, resolution=RECON_RESOLUTION, timer=timer)
+
+    wall_ms, events, ranges = profiled(call, RECON_SPANS)
     busy = busy_ms(events)
     families: dict = {}
     per_span: dict = {}
@@ -2723,7 +2753,7 @@ def phase_recon_train(smi):
     """Phase 14: reconstruction training on phase 9's scene, (a) card
     against CPU, (b) train_recon.main at full width, (c) the lod1
     reconstruct on the trained weights.  Returns (trainer, a full scene)
-    for the profile of phase 18; the scene stays for phase 15."""
+    for the profile of phase 19; the scene stays for phase 15."""
     import torch
 
     from one2345_tpu_torch.training.data import ReconScenesDataset
@@ -3211,7 +3241,8 @@ def raster_card_vs_cpu(verts, faces, colors, view: int) -> str:
 def phase_eval(mesh, smi):
     """Phase 17: sweep.main on phase 9's mesh as its own GT (.glb): the
     identical pair (.glb), a copy with each vertex moved 0.02 in a seeded
-    direction (.obj) and the identical mesh as .ply (8-bit colours), with
+    direction (.obj) and the identical mesh as .ply (8-bit colours, read
+    as [0, 1]), with
     --render_dir and the bare --clip_params (the seeded ViT-L/14 tower,
     bf16); the renders read back, one view card against CPU, seconds per
     pair and per 24 views."""
@@ -3256,6 +3287,9 @@ def phase_eval(mesh, smi):
     if not (mv["chamfer_l2"] > same["chamfer_l2"] and mv["chamfer_l1"] > same["chamfer_l1"]
             and mv["f_score"] <= same["f_score"] and mv["clip_sim"] < same["clip_sim"]):
         fail(f"eval: the moved pair {mv} is not worse than the identical pair {same}")
+    if not rows["ply"]["clip_sim"] >= EVAL_PLY_CLIP:
+        fail(f"eval: the identical mesh as .ply scores clip_sim {rows['ply']['clip_sim']} "
+             f"(>= {EVAL_PLY_CLIP})")
     with open(out) as fh:
         if json.load(fh) != json.loads(json.dumps(table)):
             fail("eval: the written table differs from the returned one")
@@ -3286,13 +3320,430 @@ def phase_eval(mesh, smi):
         f"chamfer_l2 {same['chamfer_l2']:.3e} (sampling floor, < {EVAL_SAME_CD}), f_score "
         f"{same['f_score']}, clip_sim {same['clip_sim']:.7f}; moved by {EVAL_MOVE}: chamfer_l2 "
         f"{mv['chamfer_l2']:.3e}, chamfer_l1 {mv['chamfer_l1']:.3e}, f_score "
-        f"{mv['f_score']:.4f}, clip_sim {mv['clip_sim']:.5f}; .ply (8-bit colours read as "
-        f"0-255, as the JAX sweep reads them): clip_sim {rows['ply']['clip_sim']:.5f}; 3 x 24 "
+        f"{mv['f_score']:.4f}, clip_sim {mv['clip_sim']:.5f}; .ply (8-bit colours scaled by "
+        f"1/255): clip_sim {rows['ply']['clip_sim']:.5f} (>= {EVAL_PLY_CLIP}); 3 x 24 "
         f"renders read back | evaluate_mesh_pair alone {pair_s:.3f} s (16384 points, float64 "
         f"nearest neighbours), render_eval_views 24 views at 256^2 {views_s:.3f} s | peak mem "
         f"{peak:.2f} GiB | {smi}"
     )
     log("phase eval: " + raster_card_vs_cpu(vn, f, c, 5))
+
+
+# ------------------------------------------------------------------ convert
+# The seeded weights under the reference's key names and in its layouts:
+# phase 18 writes them as the reference's checkpoint files and converts them
+# back with utils/convert_cli.py.  The JAX package has no inverse of its
+# converter, so the port has none; tests/test_torch_convert_weights.py holds
+# these functions against the JAX converter.
+UNET_PARTS = {"in_norm": "in_layers.0", "in_conv": "in_layers.2", "emb_proj": "emb_layers.1",
+              "out_norm": "out_layers.0", "out_conv": "out_layers.3", "skip": "skip_connection",
+              "block0": "transformer_blocks.0", "to_out": "to_out.0", "ff_geglu": "ff.net.0",
+              "ff_out": "ff.net.2"}
+CLIP_RULES = ((r"(class_embedding|positional_embedding|proj)$", r"\1"), (r"patch_embed\.", "conv1."),
+              (r"(ln_pre|ln_post)\.", r"\1."), (r"resblock_(\d+)\.", r"transformer.resblocks.\1."))
+CLIP_PARTS = {"fc": "mlp.c_fc", "proj": "mlp.c_proj"}
+SAM_RULES = (
+    (r"encoder\.pos_embed$", "image_encoder.pos_embed"),
+    (r"encoder\.patch_embed\.", "image_encoder.patch_embed.proj."),
+    (r"encoder\.neck_conv1\.", "image_encoder.neck.0."),
+    (r"encoder\.neck_ln1\.", "image_encoder.neck.1."),
+    (r"encoder\.neck_conv2\.", "image_encoder.neck.2."),
+    (r"encoder\.neck_ln2\.", "image_encoder.neck.3."),
+    (r"encoder\.block_(\d+)\.", r"image_encoder.blocks.\1."),
+    (r"decoder\.(iou_token|mask_tokens)$", r"mask_decoder.\1.weight"),
+    (r"decoder\.layer(\d)\.", r"mask_decoder.transformer.layers.\1."),
+    (r"decoder\.final_attn\.", "mask_decoder.transformer.final_attn_token_to_image."),
+    (r"decoder\.norm_final\.", "mask_decoder.transformer.norm_final_attn."),
+    (r"decoder\.upscale_conv1\.", "mask_decoder.output_upscaling.0."),
+    (r"decoder\.upscale_ln\.", "mask_decoder.output_upscaling.1."),
+    (r"decoder\.upscale_conv2\.", "mask_decoder.output_upscaling.3."),
+    (r"decoder\.iou_head\.lin(\d)\.", r"mask_decoder.iou_prediction_head.layers.\1."),
+    (r"decoder\.hyper_(\d)\.lin(\d)\.", r"mask_decoder.output_hypernetworks_mlps.\1.layers.\2."),
+    (r"extra\.pe_gaussian$", "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+)
+SAM_PARTS = {"mlp_lin1": "mlp.lin1", "mlp_lin2": "mlp.lin2",
+             "cross_attn_t2i": "cross_attn_token_to_image",
+             "cross_attn_i2t": "cross_attn_image_to_token"}
+LOFTR_RULES = (
+    (r"backbone\.layer(\d)_(\d)\.down_conv\.", r"backbone.layer\1.\2.downsample.0."),
+    (r"backbone\.layer(\d)_(\d)\.down_bn\.", r"backbone.layer\1.\2.downsample.1."),
+    (r"backbone\.layer(\d)_(\d)\.", r"backbone.layer\1.\2."),
+    (r"backbone\.layer(\d)_outconv2_0\.", r"backbone.layer\1_outconv2.0."),
+    (r"backbone\.layer(\d)_outconv2_bn\.", r"backbone.layer\1_outconv2.1."),
+    (r"backbone\.layer(\d)_outconv2_1\.", r"backbone.layer\1_outconv2.3."),
+    (r"backbone\.", "backbone."),
+    # layer_names = ['self', 'cross'] * 4: layers[2i] = self_i, layers[2i+1] = cross_i
+    (r"coarse_tf\.self_(\d)\.", lambda m: f"loftr_coarse.layers.{2 * int(m[1])}."),
+    (r"coarse_tf\.cross_(\d)\.", lambda m: f"loftr_coarse.layers.{2 * int(m[1]) + 1}."),
+    (r"fine_tf\.self_0\.", "loftr_fine.layers.0."),
+    (r"fine_tf\.cross_0\.", "loftr_fine.layers.1."),
+    (r"(down_proj|merge_feat)\.", r"fine_preprocess.\1."),
+)
+LOFTR_PARTS = {"mlp0": "mlp.0", "mlp2": "mlp.2"}
+# FeatureNet's ConvBnAct_0..7: conv0.{0,1}, conv1.{0,1,2}, conv2.{0,1,2}
+FPN_CONVS = [(f"conv{c}", i) for c, n in ((0, 2), (1, 3), (2, 3)) for i in range(n)]
+COSTREG_CONVS = {"_MConvBnRelu": list(range(7)), "_MDeconvBnRelu": [7, 9, 11]}
+RENDER_FCS = {"ray_dir_fc0": "ray_dir_fc.0", "ray_dir_fc1": "ray_dir_fc.2", "base_fc0": "base_fc.0",
+              "base_fc1": "base_fc.2", "vis_fc0": "vis_fc.0", "vis_fc1": "vis_fc.2",
+              "vis_fc2_0": "vis_fc2.0", "vis_fc2_1": "vis_fc2.2", "rgb_fc0": "rgb_fc.0",
+              "rgb_fc1": "rgb_fc.2", "rgb_fc2": "rgb_fc.4"}
+INPLACE_ABN_EPS = 1e-5
+# the reference's file names, under _smoke_scenes/convert/
+CONVERT_FILES = {"zero123": "zero123-xl.ckpt", "sam": "sam_vit_h_4b8939.pth",
+                 "loftr": "indoor_ds_new.ckpt", "recon": "ckpt_215000.pth",
+                 "safety": "safety_checker.bin"}
+
+
+def renamed(sd: dict, rules, parts=None, prefix: str = "") -> dict:
+    """``sd`` under the reference's names: the first of ``rules`` (pattern,
+    replacement string or function of the match) whose pattern matches the
+    start of a key rewrites that start; then each dotted component of the
+    rest that ``parts`` names is replaced."""
+    out = {}
+    for key, value in sd.items():
+        for pattern, repl in rules:
+            m = re.match(pattern, key)
+            if m:
+                break
+        else:
+            raise KeyError(f"no reference name for {key!r}")
+        rest = [(parts or {}).get(c, c) for c in key[m.end():].split(".") if c]
+        head = repl(m) if callable(repl) else m.expand(repl)
+        out[prefix + head + ".".join(rest)] = value
+    return out
+
+
+def unet_rules(sd: dict) -> list:
+    """The scopes of a UNet state dict (its levels and res blocks read off its
+    keys) -> openaimodel.py's block numbering."""
+    n = 1 + max(int(m[1]) for k in sd if (m := re.match(r"in_(\d+)_", k)))
+    blocks = 1 + max(int(m[1]) for k in sd if (m := re.match(r"in_0_(\d+)_res\.", k)))
+    scopes = {"time_embed_0": "time_embed.0", "time_embed_2": "time_embed.2",
+              "conv_in": "input_blocks.0.0", "out_norm": "out.0", "conv_out": "out.2",
+              "mid_res1": "middle_block.0", "mid_attn": "middle_block.1",
+              "mid_res2": "middle_block.2"}
+    idx = 1
+    for level in range(n):
+        for i in range(blocks):
+            scopes[f"in_{level}_{i}_res"] = f"input_blocks.{idx}.0"
+            scopes[f"in_{level}_{i}_attn"] = f"input_blocks.{idx}.1"
+            idx += 1
+        if level != n - 1:
+            scopes[f"down_{level}"] = f"input_blocks.{idx}.0"
+            idx += 1
+    idx = 0
+    for level in reversed(range(n)):
+        for i in range(blocks + 1):
+            scopes[f"out_{level}_{i}_res"] = f"output_blocks.{idx}.0"
+            scopes[f"out_{level}_{i}_attn"] = f"output_blocks.{idx}.1"
+            if i == blocks and level != 0:
+                sub = 2 if any(k.startswith(f"out_{level}_{i}_attn.") for k in sd) else 1
+                scopes[f"up_{level}"] = f"output_blocks.{idx}.{sub}"
+            idx += 1
+    return [(rf"{scope}\.", f"{ref}.") for scope, ref in scopes.items()]
+
+
+def vae_rules(part: str) -> tuple:
+    """The VAE encoder's or decoder's scopes -> the reference's."""
+    return ((r"down_(\d+)_block_(\d+)\.", rf"{part}.down.\1.block.\2."),
+            (r"down_(\d+)_downsample\.", rf"{part}.down.\1.downsample.conv."),
+            (r"up_(\d+)_block_(\d+)\.", rf"{part}.up.\1.block.\2."),
+            (r"up_(\d+)_conv\.", rf"{part}.up.\1.upsample.conv."),
+            (r"mid_block_(\d)\.", rf"{part}.mid.block_\1."),
+            (r"mid_attn\.", f"{part}.mid.attn_1."),
+            (r"(post_quant_conv|quant_conv)\.", r"\1."),
+            (r"", f"{part}."))
+
+
+def reference_clip(sd: dict, prefix: str = "cond_stage_model.model.visual.") -> dict:
+    """A CLIPVisionTower state dict as OpenAI's visual tower: q, k and v
+    packed into each block's in_proj."""
+    import torch
+
+    sd = dict(sd)
+    layers = 1 + max(int(m[1]) for k in sd if (m := re.match(r"resblock_(\d+)\.", k)))
+    for i in range(layers):
+        a = f"resblock_{i}.attn."
+        for leaf in ("weight", "bias"):
+            sd[f"{a}in_proj_{leaf}"] = torch.cat([sd.pop(f"{a}{x}_proj.{leaf}") for x in "qkv"])
+    return renamed(sd, CLIP_RULES, CLIP_PARTS, prefix)
+
+
+def reference_zero123(z: dict) -> dict:
+    """The Zero123 stage's state dicts as a Lightning LatentDiffusion
+    checkpoint (zero123-xl.ckpt's container and keys, without EMA)."""
+    sd = renamed(z["unet"], unet_rules(z["unet"]), UNET_PARTS, "model.diffusion_model.")
+    for part in ("encoder", "decoder"):
+        sd.update(renamed(z[part], vae_rules(part), prefix="first_stage_model."))
+    sd.update(reference_clip(z["clip"]))
+    sd["cc_projection.weight"] = z["cc_projection"]["kernel"].T
+    sd["cc_projection.bias"] = z["cc_projection"]["bias"]
+    return {"epoch": 0, "global_step": 0, "state_dict": sd}
+
+
+def with_ema(sd: dict, keep: str) -> dict:
+    """A LatentDiffusion state dict with LitEma's twins ('model_ema.' and the
+    name with every dot dropped): each UNet weight moves to its twin and a
+    zero placeholder of no memory takes its raw name, except ``keep``, which
+    keeps its raw weight and gets no twin."""
+    out = dict(sd)
+    for k, v in sd.items():
+        if k.startswith("model.diffusion_model.") and k != keep:
+            out["model_ema." + k[len("model."):].replace(".", "")] = v
+            out[k] = v.new_zeros(()).expand(v.shape)
+    return out
+
+
+def reference_sam(sd: dict) -> dict:
+    """A SamModules state dict as sam_vit_h_4b8939.pth's bare state dict."""
+    sd = dict(sd)
+    box = sd.pop("extra.box_embed")
+    out = renamed(sd, SAM_RULES, SAM_PARTS)
+    for i in (2, 3):
+        out[f"prompt_encoder.point_embeddings.{i}.weight"] = box[i - 2:i - 1]
+    return out
+
+
+def reference_loftr(sd: dict) -> dict:
+    """A LoFTRModules state dict as indoor_ds_new.ckpt: Lightning's
+    container, every key under 'matcher.'."""
+    return {"epoch": 0, "global_step": 0,
+            "state_dict": renamed(sd, LOFTR_RULES, LOFTR_PARTS, "matcher.")}
+
+
+def inplace_abn_gamma(scale):
+    """An InPlaceABN gamma whose effective scale |gamma| + 1e-5 is ``scale``
+    (> 1e-5) exactly in f32; every other gamma negative."""
+    import torch
+
+    if not (scale > INPLACE_ABN_EPS).all():
+        raise ValueError("an InPlaceABN scale must exceed its eps")
+    g = scale - INPLACE_ABN_EPS
+    for _ in range(8):  # the f32 sum is monotone in gamma: step by ulps to the exact one
+        r = g + INPLACE_ABN_EPS
+        if torch.equal(r, scale):
+            break
+        g = torch.where(r < scale, torch.nextafter(g, torch.full_like(g, math.inf)),
+                        torch.where(r > scale, torch.nextafter(g, torch.zeros_like(g)), g))
+    else:
+        raise ValueError("no f32 gamma gives these InPlaceABN scales")
+    return g * (1 - 2 * (torch.arange(len(g)) % 2)).to(g.dtype)
+
+
+def torchsparse_kernel(w, transposed: bool):
+    """A Conv3d weight (O, I, kx, ky, kz) as torchsparse's kernel [k^3, I, O]
+    (offsets with x varying fastest; a transposed conv's taps flipped)."""
+    w = w.permute(2, 3, 4, 1, 0)
+    if transposed:
+        w = w.flip(0, 1, 2)
+    return w.permute(2, 1, 0, 3, 4).reshape(-1, w.shape[3], w.shape[4])
+
+
+def reference_recon(params: dict) -> dict:
+    """ReconStage's state dicts as ckpt_215000.pth: a dict of per-network
+    state dicts, lod0 and (where ``params`` has them) lod1, with InPlaceABN
+    gammas, torchsparse kernels and weight_norm's weight_v / weight_g."""
+    out = {}
+    for lod, s in (("lod0", ""), ("lod1", "_lod1")):
+        if f"sdf{s}" not in params:
+            continue
+        fpn = {}
+        for key, v in params[f"fusion{s}"].items():
+            m = re.match(r"fpn\.ConvBnAct_(\d+)\.(Conv_0|BatchNorm_0)\.(\w+)$", key)
+            if not m:
+                fpn[key[len("fpn."):]] = v
+                continue
+            conv, i = FPN_CONVS[int(m[1])]
+            layer = "conv" if m[2] == "Conv_0" else "bn"
+            fpn[f"{conv}.{i}.{layer}.{m[3]}"] = (
+                inplace_abn_gamma(v) if (layer, m[3]) == ("bn", "weight") else v)
+        sdf = {}
+        for key, v in params[f"sdf{s}"].items():
+            if m := re.match(r"compress\.(Conv_0|BatchNorm_0)\.(\w+)$", key):
+                layer = "conv" if m[1] == "Conv_0" else "bn"
+                sdf[f"compress_layer.{layer}.{m[2]}"] = (
+                    inplace_abn_gamma(v) if (layer, m[2]) == ("bn", "weight") else v)
+            elif m := re.match(r"costreg\.(_M\w+)_(\d)\.Conv_0\.weight$", key):
+                name = f"conv{COSTREG_CONVS[m[1]][int(m[2])]}"
+                sdf[f"sparse_costreg_net.{name}.net.0.kernel"] = torchsparse_kernel(
+                    v, transposed=m[1] == "_MDeconvBnRelu")
+            elif m := re.match(r"costreg\.(_M\w+)_(\d)\.MaskedBatchNorm_0\.(\w+)$", key):
+                name = f"conv{COSTREG_CONVS[m[1]][int(m[2])]}"
+                sdf[f"sparse_costreg_net.{name}.net.1.{m[3]}"] = v
+            elif m := re.match(r"sdf_layer\.(lin\d)\.v$", key):
+                sdf[f"sdf_layer.{m[1]}.weight_v"] = v.T
+            elif m := re.match(r"sdf_layer\.(lin\d)\.g$", key):
+                sdf[f"sdf_layer.{m[1]}.weight_g"] = v[:, None]
+            elif key.startswith("sdf_layer.") and key.endswith(".bias"):
+                sdf[key] = v
+            else:
+                raise KeyError(f"no reference name for sdf{s} {key!r}")
+        render = {"s": params[f"render{s}"]["s"].reshape(1)}
+        render.update(renamed({k: v for k, v in params[f"render{s}"].items() if k != "s"},
+                              [(rf"{k}\.", f"{v}.") for k, v in RENDER_FCS.items()]))
+        out[f"pyramid_feature_network_{lod}"] = fpn
+        out[f"sdf_network_{lod}"] = sdf
+        out[f"rendering_network_{lod}"] = render
+        out[f"variance_network_{lod}"] = dict(params[f"variance{s}"])
+    return out
+
+
+def safety_state_dict() -> dict:
+    """A seeded HF safety-checker state dict: 3 concept and 2 special-care
+    embeddings whose thresholds (0.5, 0.6 once scaled) no image reaches."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(46)
+    return {
+        "concept_embeds": torch.from_numpy(rng.standard_normal((3, 768)).astype(np.float32)),
+        "concept_embeds_weights": torch.full((3,), 0.5),
+        "special_care_embeds": torch.from_numpy(rng.standard_normal((2, 768)).astype(np.float32)),
+        "special_care_embeds_weights": torch.full((2,), 0.5),
+    }
+
+
+def reference_checkpoints(stages: dict, sam_w: dict) -> dict:
+    """The weights of phase 11's CLI run (the stages' state dicts, SAM's and
+    ``safety_state_dict()``) -> {name: the reference's checkpoint object}."""
+    return {
+        "zero123": reference_zero123(stages["zero123"]),
+        "sam": reference_sam(sam_w),
+        "loftr": reference_loftr(stages["loftr"]),
+        "recon": reference_recon(stages["recon"]),
+        "safety": safety_state_dict(),
+    }
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for value in tree.values():
+            yield from tree_leaves(value)
+    else:
+        yield tree
+
+
+def tree_differences(got, want, path: str = "") -> list:
+    """The paths at which two trees of tensors and scalars differ: keys,
+    dtypes, shapes or any bit."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [f"{path} (keys)"]
+        return [d for k in want for d in tree_differences(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, torch.Tensor):
+        same = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and got.shape == want.shape and torch.equal(
+                    got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)))
+    else:
+        same = type(got) is type(want) and got == want
+    return [] if same else [path]
+
+
+def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
+    """Phase 18: phase 11's parameter tree written as the reference's five
+    checkpoint files, converted by utils/convert_cli.py in its own process,
+    read back and held against the tree bit for bit; the UNet's EMA remap at
+    full width in memory; then cli.main --params on the converted file with
+    --sampler dpmpp, held against phase 12's --sampler dpmpp run on the
+    in-memory tree."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from one2345_tpu_torch.core import checkpoint
+    from one2345_tpu_torch.utils import convert_weights as cw
+
+    root = os.path.join(SCENES_OUT, "convert")
+    os.makedirs(root, exist_ok=True)
+    out = os.path.join(root, "params.pt")
+    try:
+        refs = reference_checkpoints(stages, sam_w)
+        # the EMA weights win over the raw ones, and a UNet key without a
+        # twin falls back to its raw weight
+        z = refs["zero123"]["state_dict"]
+        keep = "model.diffusion_model.out.2.bias"
+        t0 = time.perf_counter()
+        unet = cw.convert_zero123(with_ema(z, keep))["unet"]
+        ema_s = time.perf_counter() - t0
+        if diff := tree_differences(unet, stages["zero123"]["unet"]):
+            fail(f"convert: the EMA UNet differs from the seeded one at {diff[:5]}")
+        del unet, z
+        written = {}
+        for name, obj in refs.items():
+            path = os.path.join(root, CONVERT_FILES[name])
+            t0 = time.perf_counter()
+            torch.save(obj, path)
+            written[name] = (path, time.perf_counter() - t0)
+        del refs
+        argv = [sys.executable, "-m", "one2345_tpu_torch.utils.convert_cli"]
+        for name, (path, _) in written.items():
+            argv += [f"--{name}", path]
+        t0 = time.perf_counter()
+        res = subprocess.run(argv + ["--out", out], cwd=REPO, capture_output=True, text=True,
+                             timeout=900)
+        convert_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"convert: convert_cli exited {res.returncode}: {res.stderr[-2000:]}")
+        per_file = re.findall(r"converted (\w+): .* \((\d+) bytes\): load ([\d.]+) s, convert "
+                              r"([\d.]+) s", res.stdout)
+        saved = re.search(r"saved .* \((\d+) bytes\) in ([\d.]+) s", res.stdout)
+        if sorted(f[0] for f in per_file) != sorted(written) or not saved:
+            fail(f"convert: convert_cli printed {res.stdout!r}")
+        for path, _ in written.values():
+            os.remove(path)
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(out)
+        restore_s = time.perf_counter() - t0
+        want = cli_params(stages, sam_w)
+        checker = want.pop("safety")
+        want["safety"] = {
+            "concept_embeds": torch.from_numpy(checker.concept_embeds),
+            "concept_thresholds": torch.from_numpy(checker.concept_thresholds),
+            "special_embeds": torch.from_numpy(checker.special_embeds),
+            "special_thresholds": torch.from_numpy(checker.special_thresholds),
+            "threshold_scale": 1.0,
+        }
+        if diff := tree_differences(restored, want):
+            fail(f"convert: the converted tree differs from phase 11's at {diff[:5]}")
+        n_tensors = sum(isinstance(x, torch.Tensor) for x in tree_leaves(want))
+        del restored
+        log("phase convert: the reference's checkpoints of phase 11's seeded weights, written "
+            "with torch.save (" + ", ".join(
+                f"{CONVERT_FILES[n]} {int(b) / 2**30:.3f} GiB in {written[n][1]:.2f} s"
+                for n, b, _, _ in per_file)
+            + f"); utils.convert_cli in its own process: {convert_s:.2f} s in all, per file load "
+            + ", ".join(f"{n} {float(ld):.2f} s + convert {float(cv):.3f} s"
+                        for n, _, ld, cv in per_file)
+            + f", saved {int(saved[1]) / 2**30:.3f} GiB in {float(saved[2]):.2f} s; restored "
+            f"(weights_only) in {restore_s:.2f} s: {n_tensors} tensors equal to phase 11's tree "
+            f"bit for bit; the EMA remap at full width in memory ({ema_s:.2f} s): EMA weights "
+            f"win, {keep} without a twin keeps its raw weight | {smi}")
+
+        img_path, raw = cli_input()
+        expected = 16 * DPMPP_EVALS
+        run = cli_run("convert cli", ["--sampler", "dpmpp", "--params", out], img_path, raw,
+                      None, expected)
+        res, ref = run[0], dpmpp_run[0]
+        if res.elevation != ref.elevation:
+            fail(f"convert cli: elevation {res.elevation}, phase 12's {ref.elevation}")
+        images = max(float((a - b).abs().max()) for a, b in (
+            (res.stage1_images, ref.stage1_images), (res.stage2_images, ref.stage2_images)))
+        same_mesh = (np.array_equal(res.vertices, ref.vertices)
+                     and np.array_equal(res.faces, ref.faces)
+                     and np.array_equal(res.colors, ref.colors))
+        if images != 0.0 or not same_mesh:
+            fail(f"convert cli: stage images max abs {images} from phase 12's dpmpp run, mesh "
+                 f"{len(res.vertices)} / {len(ref.vertices)} vertices, equal {same_mesh}")
+        log("phase convert: cli.main --sampler dpmpp --params <converted file> on the phase-11 "
+            "PNG (SAM on, gate loaded from the file): " + cli_line(*run[:3], expected, *run[3:])
+            + f" | stage images and mesh equal to phase 12's --sampler dpmpp run on the "
+            f"in-memory tree | {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
 
 
 def main() -> int:
@@ -3328,14 +3779,17 @@ def main() -> int:
     stages = {"zero123": params, "recon": recon_p, "loftr": loftr_w}
     cli_run_ddim = phase_cli(stages, sam_w, smi)
     launches = cli_run_ddim[2]
-    card_int8_unet = phase_fast_modes(stage, unet_weights, stages, sam_w, cli_run_ddim, smi)
-    del sam_w, cli_run_ddim
+    card_int8_unet, cli_run_dpmpp = phase_fast_modes(stage, unet_weights, stages, sam_w,
+                                                     cli_run_ddim, smi)
+    del cli_run_ddim
     _, dq_launches, dkv_launches = phase_train(stage, params, smi)
     try:
         recon_trainer, recon_scene = phase_recon_train(smi)
         phase_finetune(recon_p, smi)
         phase_train_zero123(params, smi)
         phase_eval(pipeline_mesh, smi)
+        phase_convert(stages, sam_w, cli_run_dpmpp, smi)
+        del sam_w, cli_run_dpmpp
     finally:
         shutil.rmtree(SCENES_OUT, ignore_errors=True)
     log(f"{SCENES_OUT} removed")

@@ -8,7 +8,7 @@ from one2345_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
 )
-from one2345_tpu_torch.core.profiling import Timer
+from one2345_tpu_torch.core.profiling import Timer, trace_annotation
 
 __all__ = [
     "CLIPVisionConfig",
@@ -20,4 +20,5 @@ __all__ = [
     "UNetConfig",
     "VAEConfig",
     "Timer",
+    "trace_annotation",
 ]

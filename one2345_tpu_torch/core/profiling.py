@@ -1,6 +1,7 @@
-"""Named timing spans and the analytic UNet FLOP count.
+"""Named timing spans, trace annotations and the analytic UNet FLOP count.
 
-Every span is also a ``torch.profiler.record_function`` range, so a
+Every span is also a ``torch.profiler.record_function`` range, as is each
+``trace_annotation``, so a
 ``torch.profiler`` trace shows the same names.  PyTorch returns before the
 card finishes, so ``Timer`` synchronises the device at the end of each span:
 a span is the time the work took, not the time it took to enqueue it.
@@ -13,6 +14,14 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    """A named range of a ``torch.profiler`` trace (the JAX package's
+    ``jax.profiler.TraceAnnotation`` wrapper)."""
+    with torch.profiler.record_function(name):
+        yield
 
 
 @dataclass

@@ -16,7 +16,8 @@ objaverse/backpack_gt.glb}).
 ``--render_dir`` also writes each prediction's 24 eval renders as PNGs;
 ``--clip_params`` reads the CLIP tower from a ``core/checkpoint.py`` tree
 (its 'clip' or 'zero123/clip' entry; the bare flag: a seeded tower, a
-protocol check only).  Metrics, renders and CLIP run on the card.
+protocol check only).  Metrics, renders and CLIP run on the card.  Unlike
+the JAX sweep, ``load_mesh`` reads a .ply's 8-bit colours as [0, 1].
 """
 
 from __future__ import annotations
@@ -53,14 +54,17 @@ def load_obj(path: str):
 
 
 def load_mesh(path: str):
-    """(verts [N, 3] f32, faces [M, 3] int32, colors [N, 3] f32 or None) of
-    a .ply, .obj or .glb (a PLY's uint8 colours are kept as their 0-255
-    values, as in the JAX sweep)."""
+    """(verts [N, 3] f32, faces [M, 3] int32, colors [N, 3] f32 in [0, 1] or
+    None) of a .ply, .obj or .glb.  A PLY's uint8 colours are scaled by
+    1/255, as the .glb reader scales integer colours; the JAX sweep keeps
+    them 0-255, so its renders of a .ply saturate (a deliberate divergence)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".ply":
         from one2345_tpu_torch.recon.mesh_extract import load_ply
 
         v, f, c = load_ply(path)
+        if c is not None:
+            c = c.astype(np.float32) / np.float32(255)
     elif ext == ".obj":
         v, f, c = load_obj(path)
     elif ext == ".glb":

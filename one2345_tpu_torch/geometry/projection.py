@@ -1,11 +1,14 @@
 """World -> pixel projection and the per-view feature fetch.
 
-Counterpart of ``project_points`` and ``sample_features_from_maps`` of
-``one2345_tpu/geometry/projection.py``.  Feature maps are channels-last
+Counterpart of ``one2345_tpu/geometry/projection.py``: ``project_points``,
+``back_project_features``, ``frustum_mask``, ``sample_features_from_maps``
+and ``aggregate_multiview_features``.  Feature maps are channels-last
 [V, H, W, C], as in the JAX package.  The two depth rules differ on
 purpose, as in the reference:
-- ``project_points`` (the cost volume's back-projection) clamps z >= 0 to
-  ``z_clamp`` before the divide and keeps negative z;
+- ``project_points`` (the cost volume's back-projection, and so
+  ``back_project_features`` and ``frustum_mask``) clamps z >= 0 to
+  ``z_clamp`` before the divide and keeps negative z; a point counts where
+  |g| <= 1 and z > 0;
 - ``sample_features_from_maps`` (the render-time fetch) clamps z to 1e-3
   and keeps a point where |g| < 1 strictly.
 """
@@ -26,6 +29,48 @@ def project_points(pts: torch.Tensor, proj: torch.Tensor, z_clamp: float = 1e-6)
     z = proj[2, 0] * pts[..., 0] + proj[2, 1] * pts[..., 1] + proj[2, 2] * pts[..., 2] + proj[2, 3]
     z_safe = torch.where(z >= 0, z.clamp(min=z_clamp), z)
     return x / z_safe, y / z_safe, z
+
+
+def _frustum(pts: torch.Tensor, proj: torch.Tensor, size_hw):
+    """Normalized coordinates (gx, gy) of ``pts`` in one view calibrated for
+    ``size_hw``, and the mask of the points inside its frustum."""
+    sH, sW = size_hw
+    x, y, z = project_points(pts, proj)
+    gx = 2.0 * x / (sW - 1) - 1.0
+    gy = 2.0 * y / (sH - 1) - 1.0
+    return gx, gy, (gx.abs() <= 1.0) & (gy.abs() <= 1.0) & (z > 0)
+
+
+def back_project_features(pts: torch.Tensor, feats: torch.Tensor, projs: torch.Tensor,
+                          size_hw=None):
+    """Every view's feature at the projections of ``pts`` (the dense form of
+    the reference's back_project_sparse_type, ops/back_project.py:5-86).
+
+    :param pts: [N, 3] world points; :param feats: [V, H, W, C];
+    :param projs: [V, 4, 4] (K @ w2c); :param size_hw: the (H, W) the
+        projections are calibrated for (default: the maps' size)
+    :return: (features [N, V, C], mask [N, V] bool: inside the frustum with
+        positive depth)
+    """
+    H, W = feats.shape[1], feats.shape[2]
+    size_hw = size_hw if size_hw is not None else (H, W)
+    px, py, masks = [], [], []
+    for proj in projs:
+        gx, gy, mask = _frustum(pts, proj, size_hw)
+        px.append((gx + 1.0) * 0.5 * (W - 1))
+        py.append((gy + 1.0) * 0.5 * (H - 1))
+        masks.append(mask)
+    features = bilinear_sample(feats, torch.stack(px), torch.stack(py))  # [V, N, C]
+    return features.transpose(0, 1), torch.stack(masks, 1)
+
+
+def frustum_mask(pts: torch.Tensor, projs: torch.Tensor, size_hw,
+                 min_visible_views: int = 2) -> torch.Tensor:
+    """[N] bool: the point lies inside at least ``min_visible_views`` view
+    frusta (the reference's culling, sparse_sdf_network.py:326-334, keeps
+    more than 1)."""
+    visible = sum(_frustum(pts, proj, size_hw)[2].to(torch.int32) for proj in projs)
+    return visible >= min_visible_views
 
 
 def sample_features_from_maps(pts: torch.Tensor, feats: torch.Tensor, w2cs: torch.Tensor,
@@ -51,3 +96,17 @@ def sample_features_from_maps(pts: torch.Tensor, feats: torch.Tensor, w2cs: torc
     px = (gx + 1.0) * 0.5 * (W - 1)
     py = (gy + 1.0) * 0.5 * (H - 1)
     return bilinear_sample(feats, px, py), mask
+
+
+def aggregate_multiview_features(features: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Variance and mean over the view axis, as sparse_sdf_network.py:221-250:
+    the sums run over every view (an invisible one adds its zero-padded
+    features) but divide by the visible views' count.
+
+    :param features: [N, V, C]; :param masks: [N, V] (bool or 0/1)
+    :return: [N, 2C], concat(variance, mean)
+    """
+    inv = 1.0 / (masks.to(features.dtype).sum(1) + 1e-5)
+    mean = features.sum(1) * inv[:, None]
+    var = (features**2).sum(1) * inv[:, None] - mean**2
+    return torch.cat([var, mean], dim=-1)

@@ -2,14 +2,14 @@
 coordinates).
 
 Counterpart of ``one2345_tpu/geometry/sampling.py``: ``bilinear_sample``,
-``trilinear_sample``, ``nearest_sample_volume`` and ``sample_pdf``.
+``bilinear_sample_normalized``, ``trilinear_sample``,
+``nearest_sample_volume`` and ``sample_pdf``.
 Conventions, as torch's ``grid_sample`` with align_corners=True: a
 normalized coordinate g in [-1, 1] maps to index (g + 1) / 2 * (size - 1);
 with ``zeros`` padding each corner tap that lies outside the map
-contributes zero, with ``border`` (trilinear only; the sphere tracer's) it
-reads the clamped edge voxel.  Coordinates stay f32 whatever the map's
-dtype; the weights are cast to the map's dtype, as the JAX functions cast
-them.
+contributes zero, with ``border`` it reads the clamped edge pixel or
+voxel.  Coordinates stay f32 whatever the map's dtype; the weights are
+cast to the map's dtype, as the JAX functions cast them.
 
 Volumes are [X, Y, Z, C] and points (x, y, z) index X, Y, Z, so no axis
 flip is needed (``grid_sample``'s grid is (W, H, D), innermost first).
@@ -24,8 +24,10 @@ def _unnormalize(g: torch.Tensor, size: int) -> torch.Tensor:
     return (g + 1.0) * 0.5 * (size - 1)
 
 
-def bilinear_sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Sample ``image`` at pixel coordinates (x, y) (0..W-1, 0..H-1).
+def bilinear_sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    padding: str = "zeros") -> torch.Tensor:
+    """Sample ``image`` at pixel coordinates (x, y) (0..W-1, 0..H-1), with
+    ``zeros`` or ``border`` padding.
 
     ``image`` is [H, W, C] with ``x``/``y`` of any shape -> [..., C], or a
     stack [B, H, W, C] with ``x``/``y`` [B, ...] -> [B, ..., C], map b
@@ -41,10 +43,11 @@ def bilinear_sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
     ty = y - y0
 
     def tap(ix, iy):
-        ix_c = ix.clamp(0, W - 1).long()
-        iy_c = iy.clamp(0, H - 1).long()
+        v = image[batch + (iy.clamp(0, H - 1).long(), ix.clamp(0, W - 1).long())]
+        if padding == "border":
+            return v
         ok = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
-        return image[batch + (iy_c, ix_c)] * ok[..., None].to(image.dtype)
+        return v * ok[..., None].to(image.dtype)
 
     dt = image.dtype
     w00 = ((1 - tx) * (1 - ty))[..., None].to(dt)
@@ -57,6 +60,15 @@ def bilinear_sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
         + tap(x0, y0 + 1) * w10
         + tap(x0 + 1, y0 + 1) * w11
     )
+
+
+def bilinear_sample_normalized(image: torch.Tensor, grid: torch.Tensor,
+                               padding: str = "zeros") -> torch.Tensor:
+    """Sample ``image`` [H, W, C] at ``grid`` [..., 2], (gx, gy) in [-1, 1]
+    -> [..., C]."""
+    H, W = image.shape[-3], image.shape[-2]
+    return bilinear_sample(image, _unnormalize(grid[..., 0], W), _unnormalize(grid[..., 1], H),
+                           padding=padding)
 
 
 def trilinear_sample(volume: torch.Tensor, pts: torch.Tensor, padding: str = "zeros") -> torch.Tensor:

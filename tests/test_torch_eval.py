@@ -306,9 +306,25 @@ def _write_meshes(root, writer_ext: dict):
 
 
 FORMATS = {"ball": (".obj", ".glb"), "box": (".ply", ".obj"), "shards": (".glb", ".ply")}
+_JAX_LOAD_MESH = jsweep.load_mesh
 
 
-def test_run_sweep_matches_jax(tmp_path, clip_pair):
+def _jax_load_mesh_scaled(path):
+    """The JAX sweep's reader with a .ply's 0-255 colours scaled by 1/255, as
+    the port reads them (a deliberate divergence: the JAX renders of a .ply
+    saturate)."""
+    v, f, c = _JAX_LOAD_MESH(path)
+    if path.endswith(".ply") and c is not None:
+        c = c / np.float32(255)
+    return v, f, c
+
+
+@pytest.fixture
+def jax_ply_scaled(monkeypatch):
+    monkeypatch.setattr(jsweep, "load_mesh", _jax_load_mesh_scaled)
+
+
+def test_run_sweep_matches_jax(tmp_path, clip_pair, jax_ply_scaled):
     js, ps = clip_pair
     pred, gt = _write_meshes(str(tmp_path), FORMATS)
     for ext in MESH_EXTS_CHECK:
@@ -341,7 +357,33 @@ def test_stem_matches_jax(name):
     assert sweep._stem(name) == jsweep._stem(name)
 
 
-def test_sweep_main_without_and_with_clip_params(tmp_path, clip_pair, monkeypatch):
+def test_ply_colours_read_in_unit_range_and_score_one(tmp_path, clip_pair):
+    """A mesh with 8-bit colours as its own GT (.glb), predicted as .glb and
+    as .ply: the .ply's colours read back equal to the .glb's, and both
+    pairs score clip_sim 1 (the JAX sweep, which reads the .ply's colours
+    as 0-255, scores that pair 0.237)."""
+    _, ps = clip_pair
+    v, f = _cube()
+    rng = np.random.default_rng(4)
+    c = rng.integers(0, 256, size=v.shape).astype(np.float32) / np.float32(255)
+    pred, gt = tmp_path / "pred", tmp_path / "gt"
+    pred.mkdir(), gt.mkdir()
+    for name in ("mglb", "mply"):
+        save_glb(str(gt / f"{name}_gt.glb"), v, f, c)
+    save_glb(str(pred / "mglb_ours.glb"), v, f, c)
+    save_ply(str(pred / "mply_ours.ply"), v, f, np.round(c * 255).astype(np.uint8))
+    ply, glb = sweep.load_mesh(str(pred / "mply_ours.ply")), sweep.load_mesh(str(pred / "mglb_ours.glb"))
+    for a, b in zip(ply, glb, strict=True):
+        np.testing.assert_array_equal(a, b)
+    got = sweep.run_sweep(str(pred), str(gt), n_points=400, clip_scorer=ps, device="cpu")
+    rows = {r["name"]: r for r in got["per_mesh"]}
+    assert sorted(rows) == ["mglb", "mply"]
+    for row in rows.values():
+        assert abs(row["clip_sim"] - 1.0) <= CLIP_SIM_TOL, row
+
+
+def test_sweep_main_without_and_with_clip_params(tmp_path, clip_pair, monkeypatch,
+                                                 jax_ply_scaled):
     js, ps = clip_pair
     pred, gt = _write_meshes(str(tmp_path), {"box": (".obj", ".ply")})
     base = ["--pred_dir", pred, "--gt_dir", gt, "--n_points", "600"]

@@ -137,3 +137,86 @@ def test_build_recon_cameras_is_the_jax_package_s():
             else:
                 assert ours[key].dtype == ref[key].dtype
                 np.testing.assert_array_equal(ours[key], ref[key])
+
+
+def _views(C: int, calibrated: bool = False, V: int = 4, N: int = 3000, seed: int = 6):
+    """32^2 feature maps [V, 32, 32, C], the rig's projections (calibrated
+    for 256^2, or with ``calibrated`` for the maps' 32^2) and points on both
+    sides of the frusta."""
+    rng = np.random.default_rng(seed)
+    pack = cameras.build_recon_cameras(60.0)
+    projs = np.asarray(pack["affines"][1: V + 1], np.float32)
+    if calibrated:
+        K = pack["intrinsics"][1: V + 1] / 8.0
+        K[:, 2, 2] = 1.0
+        projs[:, :3, :4] = K @ pack["w2cs"][1: V + 1, :3, :4]
+    feats = rng.standard_normal((V, 32, 32, C)).astype(np.float32)
+    pts = rng.uniform(-1.2, 1.2, size=(N, 3)).astype(np.float32)
+    return feats, projs, pts
+
+
+@pytest.mark.parametrize("calibrated, size_hw", [(True, None), (False, (256, 256))],
+                         ids=["calibrated_maps", "rescaled_maps"])
+def test_back_project_features_matches_jax(calibrated, size_hw):
+    feats, projs, pts = _views(C=5, calibrated=calibrated)
+    # eager: under jit XLA would contract the projection's a * b + c into FMAs
+    ref_f, ref_m = jax_projection.back_project_features(
+        jnp.asarray(pts), jnp.asarray(feats), jnp.asarray(projs), size_hw)
+    out_f, out_m = projection.back_project_features(_t(pts), _t(feats), _t(projs), size_hw)
+    assert out_f.shape == (3000, 4, 5) and out_m.shape == (3000, 4) and out_m.dtype == torch.bool
+    ref_m = np.asarray(ref_m)
+    assert 0.05 < ref_m.mean() < 0.95
+    assert np.array_equal(out_m.numpy(), ref_m)
+    assert max_err(out_f, ref_f) <= TOL
+
+
+@pytest.mark.parametrize("min_views", [1, 2, 4])
+def test_frustum_mask_matches_jax(min_views):
+    _, projs, pts = _views(C=1)
+    ref = np.asarray(jax_projection.frustum_mask(jnp.asarray(pts), jnp.asarray(projs), (256, 256),
+                                                 min_visible_views=min_views))
+    out = projection.frustum_mask(_t(pts), _t(projs), (256, 256), min_visible_views=min_views)
+    assert 0 < ref.sum() < len(ref)
+    assert np.array_equal(out.numpy(), ref)
+    _, masks = projection.back_project_features(_t(pts), _t(np.zeros((4, 8, 8, 1), np.float32)),
+                                                _t(projs), (256, 256))
+    assert torch.equal(out, masks.sum(1) >= min_views)
+
+
+def test_aggregate_multiview_features_matches_jax():
+    rng = np.random.default_rng(7)
+    f = rng.standard_normal((500, 6, 8)).astype(np.float32)
+    m = rng.uniform(size=(500, 6)) > 0.4
+    m[:3] = False  # no visible view: the sums over 1e-5
+    ref = jax_projection.aggregate_multiview_features(jnp.asarray(f), jnp.asarray(m, jnp.float32))
+    for masks in (_t(m), _t(m.astype(np.float32))):
+        out = projection.aggregate_multiview_features(_t(f), masks)
+        assert out.shape == (500, 16)
+        assert max_err(out, ref) <= TOL * max(1.0, float(np.abs(np.asarray(ref)).max()))
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_bilinear_sample_normalized_matches_jax(padding):
+    rng = np.random.default_rng(8)
+    img = rng.standard_normal((7, 9, 3)).astype(np.float32)
+    grid = rng.uniform(-1.3, 1.3, size=(4, 60, 2)).astype(np.float32)
+    grid[0, :4] = [[-1, -1], [1, 1], [-1, 1], [1.0001, 0]]
+    ref = jax_sampling.bilinear_sample_normalized(jnp.asarray(img), jnp.asarray(grid), padding)
+    out = sampling.bilinear_sample_normalized(_t(img), _t(grid), padding=padding)
+    assert out.shape == (4, 60, 3)
+    assert max_err(out, ref) <= TOL
+    # the same as grid_sample with align_corners=True
+    gs = torch.nn.functional.grid_sample(_t(img).permute(2, 0, 1)[None], _t(grid)[None],
+                                         padding_mode=padding, align_corners=True)
+    assert max_err(out, gs[0].permute(1, 2, 0)) <= TOL
+
+
+def test_trace_annotation_names_a_profiler_range():
+    from one2345_tpu.core import __all__ as jax_core_names
+    from one2345_tpu_torch import core
+
+    assert "trace_annotation" in core.__all__ and "trace_annotation" in jax_core_names
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with core.trace_annotation("convert_probe_span"):
+            torch.ones(8).cumsum(0)
+    assert "convert_probe_span" in {e.key for e in prof.key_averages()}

@@ -84,6 +84,8 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.eval.render_harness",
         "one2345_tpu_torch.eval.clip_metric",
         "one2345_tpu_torch.eval.sweep",
+        "one2345_tpu_torch.utils.convert_weights",
+        "one2345_tpu_torch.utils.convert_cli",
     ):
         assert module in report["modules"]
     leaked = [
