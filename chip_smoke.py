@@ -138,10 +138,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
    full width in memory; cli.main --sampler dpmpp --params on that file
    (1792 K1 launches): the same stage images and mesh as phase 12's
    --sampler dpmpp run on the in-memory tree; seconds and bytes per file;
-19. device times: each kernel's device time per launch (torch.profiler) at
+19. examples: the in-env quality examples' torch twins
+   (examples/torch_*.py) on the card: the flash kernels against their
+   plain versions at the examples' shapes (4 heads of D = 16 and 24, T = 16
+   and 64, forward B = 8 / 12 / 56, backward B = 4 / 8 / 16); pipeline
+   wiring tier A at 256^2 (polar 75 and 105, the flipped-azimuth control
+   at 75); recon_quality, diffusion_quality (its tiny stage in bf16) and
+   generative_e2e at the JAX tests' CI configurations with their gates,
+   each run's metrics on a line; the examples' K1, dq and dkv launches;
+   ElevationEstimator.save_match_visualizations on phase 7's warm views,
+   the six PNGs read back; seconds per part;
+20. device times: each kernel's device time per launch (torch.profiler) at
    the shapes of phase 3, and the device time of SDPA's backward (the
    library yardstick of the backward kernels, with its kernels' names),
-   after the timed phases 6 to 18, which a profiled run can slow on the
+   after the timed phases 6 to 19, which a profiled run can slow on the
    host; then one warm reconstruct, one warm elevation estimate and one
    warm bf16 SAM encode under torch.profiler: device ms by kernel family
    (for SAM also the global blocks' share), the device's busy share, host
@@ -312,6 +322,19 @@ EVAL_PLY_CLIP = 0.99
 # the rasteriser card vs CPU: pixels may differ only at depth ties or
 # pixel centres on an edge, within this (relative depth, barycentric)
 RASTER_TIE = 1e-9
+
+# the examples phase: the tiny Zero123 of the quality examples attends at its
+# level 1 and middle block with 4 heads of D = 16 (model_channels 32, the CI
+# configs) or 24 (48, the full-scale runs) over T = 16 (32^2 images) or 64
+# (64^2) tokens; its forward batches are the CFG doubles of 4 views (stage
+# 1), 6 held-out views and 28 views (stage 2), its backward batches the
+# train batches 4, 8 and 16
+EXAMPLE_HEADS = 4
+EXAMPLE_ATTENTION = [(D, T) for D in (16, 24) for T in (16, 64)]
+EXAMPLE_FWD_BATCHES = (8, 12, 56)
+EXAMPLE_BWD_BATCHES = (4, 8, 16)
+# the match figures of phase 7's warm views, read back and removed
+MATCH_OUT = os.path.join(REPO, "_smoke_out", "match")
 
 # (name, B, T=S, H, D) of every flash-attention call on the main path:
 # level 0 at the CFG batch of 4 views (8) and of 28 views (56), then
@@ -2753,7 +2776,7 @@ def phase_recon_train(smi):
     """Phase 14: reconstruction training on phase 9's scene, (a) card
     against CPU, (b) train_recon.main at full width, (c) the lod1
     reconstruct on the trained weights.  Returns (trainer, a full scene)
-    for the profile of phase 19; the scene stays for phase 15."""
+    for the profile of phase 20; the scene stays for phase 15."""
     import torch
 
     from one2345_tpu_torch.training.data import ReconScenesDataset
@@ -3746,6 +3769,188 @@ def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
         shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
 
 
+# ------------------------------------------------------------ examples
+# The gates of the JAX examples' tests (tests/test_pipeline_wiring.py,
+# test_recon_quality.py, test_diffusion_quality.py, test_generative_e2e.py),
+# as (name, passed) pairs; tests/test_torch_quality_examples_slow.py holds
+# the CPU runs to the same lists.
+def wiring_gates(ok: dict, flipped: dict, high: dict) -> list:
+    return [
+        ("psnr_min > 40", ok["psnr_min"] > 40.0),
+        ("psnr_query > 40", ok["psnr_query"] > 40.0),
+        ("flipped psnr_min < 25", flipped["psnr_min"] < 25.0),
+        ("flipped psnr_min < psnr_min", flipped["psnr_min"] < ok["psnr_min"]),
+        ("polar 105 psnr_min > 40", high["psnr_min"] > 40.0),
+    ]
+
+
+RECON_QUALITY_CI = dict(steps=300, res=32, vol=16, n_rays=128, n_samples=24, n_importance=24,
+                        mesh_resolution=64, seed=0, log_every=100, ft_steps=150)
+
+
+def recon_quality_gates(out: dict) -> list:
+    margin = out["psnr_heldout_masked"] - out["psnr_heldout_masked_random"]
+    return [
+        ("psnr_last > psnr_first + 10", out["psnr_last"] > out["psnr_first"] + 10.0),
+        ("pred_verts > 500", out["pred_verts"] > 500),
+        ("0.35 < pred_radius_p10 < 0.55", 0.35 < out["pred_radius_p10"] < 0.55),
+        ("chamfer_l1_obs < 0.25", out["chamfer_l1_obs"] < 0.25),
+        ("f_score_10_obs > 0.3", out["f_score_10_obs"] > 0.3),
+        ("junk_frac < 0.85", out["junk_frac"] < 0.85),
+        ("color_mae_bestview < 0.1", out.get("color_mae_bestview", 1.0) < 0.1),
+        ("color_mae < 0.35", out.get("color_mae", 1.0) < 0.35),
+        ("held-out masked margin > -3 dB", margin > -3.0),
+        ("psnr_heldout > 5", out["psnr_heldout"] > 5.0),
+        ("ft_color_last < 0.7 ft_color_first", out["ft_color_last"] < 0.7 * out["ft_color_first"]),
+        ("ft_pred_verts > 500", out["ft_pred_verts"] > 500),
+        ("ft_chamfer_l1_obs < 0.25", out["ft_chamfer_l1_obs"] < 0.25),
+        ("ft_f_score_10_obs > 0.3", out["ft_f_score_10_obs"] > 0.3),
+        ("ft_color_mae < 0.45", out.get("ft_color_mae", 1.0) < 0.45),
+    ]
+
+
+DIFFUSION_QUALITY_CI = dict(steps=1200, res=32, batch=8, vae_steps=600, sample_steps=8, n_azim=6,
+                            model_channels=32, log_every=300, seed=0)
+
+
+def diffusion_quality_gates(out: dict) -> list:
+    return [
+        ("vae_psnr > 24", out["vae_psnr"] > 24.0),
+        ("eps_mse_last < eps_mse_first / 5", out["eps_mse_last"] < out["eps_mse_first"] / 5.0),
+        ("psnr_heldout - psnr_heldout_untrained > 3 dB",
+         out["psnr_heldout"] - out["psnr_heldout_untrained"] > 3.0),
+        ("pose_margin_db > 1.5", out["pose_margin_db"] > 1.5),
+        ("pose_hits >= 2", out["pose_hits"] >= 2),
+    ]
+
+
+GENERATIVE_E2E_CI = dict(size=32, batch=4, diff_steps=12, vae_steps=12, recon_steps=12, n_rays=64,
+                         vol=16, sample_steps=4, mesh_resolution=32, model_channels=32,
+                         log_every=6, n_samples=16, n_importance=16)
+
+
+def generative_e2e_gates(out: dict, images, pairs) -> list:
+    gates = []
+    for label in ("e2e", "e2e_untrained"):
+        score = out[label]
+        gates += [
+            (f"{label} scored", "stage2_psnr_mean" in score and "pred_verts" in score),
+            (f"{label} stage2_psnr_mean finite",
+             math.isfinite(score.get("stage2_psnr_mean", math.nan))),
+        ]
+    return gates + [
+        ("eps_mse_last finite", math.isfinite(out["eps_mse_last"])),
+        ("45 images, 44 pairs", images.shape[0] == 45 and len(pairs) == 44),
+        ("conditions: the input view and stage-1 views 1..8",
+         {c for c, *_ in pairs} == {0, *range(1, 9)}),
+    ]
+
+
+def check_gates(name: str, gates: list, out: dict):
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        fail(f"examples: {name} failed its gates {failed}: {json.dumps(out)}")
+
+
+def example_kernels() -> str:
+    """K1, dq and dkv against their plain versions at the examples' shapes."""
+    import torch
+
+    lines = []
+    for i, (D, T) in enumerate(EXAMPLE_ATTENTION):
+        errs = []
+        for j, B in enumerate(EXAMPLE_FWD_BATCHES):
+            gen = torch.Generator(device="cuda").manual_seed(400 + 10 * i + j)
+            q, k, v = (torch.randn(B, T, EXAMPLE_HEADS, D, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(3))
+            errs.append(check_forward(f"example D={D} T={T} B={B}", q, k, v)[0])
+        bwd = []
+        for j, B in enumerate(EXAMPLE_BWD_BATCHES):
+            case = backward_case(B, T, T, EXAMPLE_HEADS, D, seed=500 + 10 * i + j)
+            bwd.append(max(check_backward(f"example D={D} T={T} B={B}", *case)[0]))
+        lines.append(f"D={D} T={T}: K1 O err {max(errs):.3e} at B={EXAMPLE_FWD_BATCHES}, "
+                     f"dq/dk/dv err {max(bwd):.3e} at B={EXAMPLE_BWD_BATCHES}")
+    return "; ".join(lines)
+
+
+def phase_examples(estimator, views, smi):
+    """The in-env quality examples' torch twins on the card: wiring tier A
+    at 256^2, the three trained examples at the JAX tests' CI configs with
+    their gates (the diffusion example's tiny stage in bf16), the kernels at
+    the examples' shapes, and the match figures of phase 7's warm views."""
+    import shutil
+
+    import torch
+
+    from examples import torch_diffusion_quality as tdq
+    from examples import torch_generative_e2e as tge
+    from examples import torch_pipeline_wiring as tpw
+    from examples import torch_recon_quality as trq
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+    from one2345_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    log(f"phase examples: {smi}: flash kernels at the examples' shapes (H={EXAMPLE_HEADS}, "
+        f"against their plain versions, within {O_TOL} / {BWD_TOL}): {example_kernels()}")
+
+    flash_attention.launch_count = 0
+    flash_attention.dq_launch_count = flash_attention.dkv_launch_count = 0
+    runs = {}
+    t0 = time.perf_counter()
+    ok = tpw.wiring_check(75.0, 256, device="cuda")
+    flipped = tpw.wiring_check(75.0, 256, flip_azimuth=True, device="cuda")
+    high = tpw.wiring_check(105.0, 256, device="cuda")
+    runs["pipeline_wiring"] = time.perf_counter() - t0
+    wiring = {"polar75": ok, "polar75_flipped": flipped, "polar105": high}
+    log(f"phase examples: pipeline_wiring tier A metrics {json.dumps(wiring)}")
+    check_gates("pipeline_wiring", wiring_gates(ok, flipped, high), wiring)
+
+    t0 = time.perf_counter()
+    out = trq.run_benchmark(**RECON_QUALITY_CI, device="cuda")
+    runs["recon_quality"] = time.perf_counter() - t0
+    log(f"phase examples: recon_quality metrics {json.dumps(out)}")
+    check_gates("recon_quality", recon_quality_gates(out), out)
+
+    t0 = time.perf_counter()
+    out = tdq.run_benchmark(**DIFFUSION_QUALITY_CI, device="cuda")
+    runs["diffusion_quality"] = time.perf_counter() - t0
+    log(f"phase examples: diffusion_quality (bf16) metrics {json.dumps(out)}")
+    check_gates("diffusion_quality", diffusion_quality_gates(out), out)
+
+    t0 = time.perf_counter()
+    out = tge.run_benchmark(**GENERATIVE_E2E_CI, device="cuda")
+    images, pairs = tge.build_training_set(75.0, 32, device="cuda")
+    runs["generative_e2e"] = time.perf_counter() - t0
+    log(f"phase examples: generative_e2e metrics {json.dumps(out)}")
+    check_gates("generative_e2e", generative_e2e_gates(out, images, pairs), out)
+    launches = (flash_attention.launch_count, flash_attention.dq_launch_count,
+                flash_attention.dkv_launch_count)
+    if min(launches) == 0:
+        fail(f"examples: a flash kernel was not launched by the examples (K1, dq, dkv: {launches})")
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MATCH_OUT, ignore_errors=True)
+    try:
+        paths = estimator.save_match_visualizations(views, MATCH_OUT)
+        shapes = {read_png(p).shape for p in paths}
+        names = sorted(os.path.basename(p) for p in paths)
+    finally:
+        shutil.rmtree(MATCH_OUT, ignore_errors=True)
+    want = sorted(f"match_{i}_{j}.png" for i in range(4) for j in range(i + 1, 4))
+    H, W = views.shape[1:3]
+    if names != want or shapes != {(H, 2 * W + 10, 3)}:
+        fail(f"examples: match figures {names} of shapes {shapes}")
+    runs["match_figures"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    log(
+        f"phase examples: {len(paths)} match figures ({H}x{2 * W + 10} RGB) written and read "
+        f"back | K1 / dq / dkv launches of the examples: {launches[0]} / {launches[1]} / "
+        f"{launches[2]} | seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in runs.items())
+        + f" | phase {time.perf_counter() - t_phase:.1f} s"
+    )
+
+
+
 def main() -> int:
     import shutil
 
@@ -3793,6 +3998,7 @@ def main() -> int:
     finally:
         shutil.rmtree(SCENES_OUT, ignore_errors=True)
     log(f"{SCENES_OUT} removed")
+    phase_examples(estimator, views, smi)
     phase_device_times(rows, bwd_rows)
     phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
     phase_elevation_profile(estimator, views, smi)

@@ -279,6 +279,7 @@ class UNetModel(nn.Module):
             if isinstance(m, nn.Conv2d):
                 nn.init.zeros_(m.weight)
                 nn.init.zeros_(m.bias)
+                m.zero_init = True  # kept zero by nn.init.flax_init_
 
     def forward(self, x, timesteps, context):
         """

@@ -43,6 +43,7 @@ from one2345_tpu_torch.diffusion.quantize import is_quantized, quantize_unet_sta
 from one2345_tpu_torch.diffusion.schedule import DDIMSchedule, make_ddim_schedule
 from one2345_tpu_torch.diffusion.unet import UNetModel, cast_compute
 from one2345_tpu_torch.diffusion.vae import Decoder, Encoder, moments_mode
+from one2345_tpu_torch.nn.init import flax_init_
 
 # stage-1 view deltas: 12 candidate views, of which [0:8] are used for low
 # elevation and [0:4]+[8:12] for high
@@ -111,9 +112,10 @@ class Zero123Stage:
     :param params: state dicts keyed 'unet', 'encoder', 'decoder', 'clip',
         'cc_projection' (``utils.convert_jax.zero123_from_jax`` makes them
         from the JAX parameter tree), loaded with ``strict=True``; None ->
-        modules initialised from ``seed`` (zero-initialised outputs, like
-        the JAX init).  With ``quant="int8"`` the 'unet' state is f32 or
-        already quantized.
+        modules initialised from ``seed`` with flax's initialisers
+        (``nn.init.flax_init_``: zero-initialised outputs, identity
+        CCProjection), as the JAX stage.  With ``quant="int8"`` the 'unet'
+        state is f32 or already quantized.
     :param device: None -> 'cuda' (raises without CUDA)
     """
 
@@ -150,6 +152,11 @@ class Zero123Stage:
                 embed_dim=cfg.clip.embed_dim,
             )
             self.cc_projection = CCProjection(cfg.clip.embed_dim + 4, cfg.unet.context_dim)
+        if params is None and self.device.type != "meta":
+            # flax's initialisers, as the JAX stage built from a seed
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            for name in MODULES:
+                flax_init_(getattr(self, name), gen)
         if self.quant:
             self.unet = self._int8_unet(params["unet"] if params is not None else None)
         for name in MODULES:

@@ -231,6 +231,18 @@ class ElevationEstimator:
         arrs = [x.cpu().numpy() for x in self._match_views(imgs, self._foreground(imgs, masks))]
         return [tuple(a[p] for a in arrs) for p in range(len(PAIRS))]
 
+    def save_match_visualizations(self, images, out_dir: str, masks=None) -> list[str]:
+        """One matching figure per pair of ``PAIRS``, ``match_{i}_{j}.png``
+        under ``out_dir`` (the reference's elevation debugging tool,
+        elevation_estimate/utils/plotting.py:154); returns their paths.
+
+        :param images: [4, H, W, 3] f32 in [0, 1], a tensor or an array"""
+        from one2345_tpu_torch.elevation.plotting import save_match_figures
+
+        packed = self.match_views(images, masks)
+        views = torch.as_tensor(images, dtype=torch.float32).cpu().numpy()
+        return save_match_figures(views, dict(zip(PAIRS, packed)), out_dir)
+
     def estimate(self, images, masks=None):
         """:param images: [4, H, W, 3] f32 in [0, 1] (the nearby views of
         view 0), a tensor or an array

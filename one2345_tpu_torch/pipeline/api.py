@@ -6,8 +6,9 @@ Counterpart of ``one2345_tpu/pipeline/api.py`` (reference: demo/app.py's
 plain callables any HTTP layer can wrap (``pipeline.server``).  Session
 semantics are the JAX service's; noise comes from integer seeds (each
 call's sampling phases draw from ``runner.phase_seeds(seed)``), not from
-JAX keys.  The Gradio UI (``build_gradio_app``) is not ported: gradio and
-plotly are on neither machine.
+JAX keys.  ``build_gradio_app`` wraps the service in the demo's Gradio UI
+when gradio is installed (it is on neither machine: its test records the
+wiring against a stub).
 
 One deliberate divergence: ``init_bbox`` lets an exception of SAM's bbox
 seeding through and falls back to ``estimate_bbox`` only when SAM's
@@ -172,3 +173,99 @@ class One2345Service:
             out_path = os.path.join(out_dir, "mesh.ply")
         return self.pipeline.recon.reconstruct(
             src, camera_pack, resolution=mesh_resolution, out_path=out_path)
+
+
+def build_gradio_app(service: One2345Service | None = None):
+    """Optional Gradio UI mirroring the reference demo surface
+    (demo/app.py:441-626): bbox sliders with live preview, per-view retry
+    checkboxes + regenerate-mesh chaining, camera-cone pose plot.  The same
+    components, endpoint names and retry slot -> view-id mapping as the JAX
+    builder; gradio (and plotly, for the pose plot) are imported here and
+    are not dependencies of the package.
+
+    :raises ImportError: without gradio
+    """
+    try:
+        import gradio as gr
+    except ImportError as e:
+        raise ImportError("gradio is not installed in this environment") from e
+
+    service = service or One2345Service()
+
+    def gallery(s1, sel):
+        return [(np.clip(s1[i] * 255, 0, 255)).astype(np.uint8) for i in sel]
+
+    with gr.Blocks(title="One-2-3-45") as demo:
+        with gr.Row():
+            with gr.Column():
+                inp = gr.Image(label="Input image", type="numpy")
+                bbox_preview = gr.Image(label="Foreground bbox")
+                with gr.Row():
+                    x_min = gr.Slider(0, 512, 0, step=1, label="bbox x_min")
+                    y_min = gr.Slider(0, 512, 0, step=1, label="bbox y_min")
+                with gr.Row():
+                    x_max = gr.Slider(0, 512, 512, step=1, label="bbox x_max")
+                    y_max = gr.Slider(0, 512, 512, step=1, label="bbox y_max")
+                pre = gr.Image(label="Preprocessed (256x256)")
+            with gr.Column():
+                elev = gr.Number(label="Estimated elevation (deg)")
+                cam_plot = gr.Plot(label="Camera poses")
+                views = gr.Gallery(label="Stage-1 views", columns=4)
+                retry = gr.CheckboxGroup([str(i) for i in range(8)], label="Retry view(s)")
+                mesh_file = gr.Model3D(label="Mesh")
+        b1 = gr.Button("Preprocess")
+        b2 = gr.Button("Estimate elevation & views")
+        b3 = gr.Button("Generate mesh")
+        b4 = gr.Button("Regenerate selected view(s)")
+        b5 = gr.Button("Regenerate nearby views and mesh")
+
+        def _init_bbox(image):
+            out = service.init_bbox(image)
+            x0, y0, x1, y1 = out["bbox"]
+            return out["preview"], x0, y0, x1, y1
+
+        inp.change(_init_bbox, inp, [bbox_preview, x_min, y_min, x_max, y_max])
+
+        def _pre(image, x0, y0, x1, y1):
+            return service.preprocess(image, bbox=(int(x0), int(y0), int(x1), int(y1)))
+
+        b1.click(_pre, [inp, x_min, y_min, x_max, y_max], pre, api_name="preprocess")
+
+        def _cam_figure():
+            import plotly.graph_objects as go
+
+            viz = service.camera_visualization()
+            fig = go.Figure()
+            cones = [(viz["input_cone"], "input")] + [
+                (c, f"view {i}") for i, c in enumerate(viz["view_cones"])]
+            for cone, name in cones:
+                fig.add_trace(go.Scatter3d(x=cone[:, 0], y=cone[:, 1], z=cone[:, 2],
+                                           mode="lines", name=name))
+            return fig
+
+        def _estimate():
+            e = service.estimate_elevation()
+            return e, _cam_figure(), gallery(service._session["stage1_all"],
+                                             service.selected_view_indices())
+
+        b2.click(_estimate, None, [elev, cam_plot, views], api_name="estimate_elevation")
+
+        def _gen():
+            return service.generate_mesh(out_dir="exp/gradio").get("path")
+
+        b3.click(_gen, None, mesh_file, api_name="generate_mesh")
+
+        def _retry(selected):
+            # checkbox labels are gallery SLOTS (0..7), mapped to the
+            # elevation-dependent view ids (8..11 in the high branch)
+            sel = service.selected_view_indices()
+            service.regenerate_views([sel[int(s)] for s in selected])
+            return gallery(service._session["stage1_all"], sel)
+
+        b4.click(_retry, retry, views)
+
+        def _regen_mesh():
+            return service.regenerate_mesh(out_dir="exp/gradio").get("path")
+
+        b5.click(_regen_mesh, None, mesh_file)
+    return demo

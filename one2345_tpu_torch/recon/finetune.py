@@ -32,6 +32,7 @@ from torch import nn
 
 from one2345_tpu_torch.geometry.projection import sample_features_from_maps
 from one2345_tpu_torch.geometry.sampling import bilinear_sample
+from one2345_tpu_torch.nn.init import flax_init_
 from one2345_tpu_torch.nn.layers import WNDense, positional_encoding
 from one2345_tpu_torch.recon.renderer import RenderParams, render_rays
 
@@ -215,9 +216,12 @@ class FinetuneTrainer:
         with torch.random.fork_rng(devices=cuda), dev:
             torch.manual_seed(self.seed)
             self.blend_net = BlendingRenderingNetwork(d_feature=hidden - 1, d_hidden=hidden)
-        self.blend_net.to(dt)
-        if blend_params is not None:
+        if blend_params is None:
+            # flax's lecun_normal directions, as the JAX blending net
+            flax_init_(self.blend_net, torch.Generator(device=dev).manual_seed(self.seed))
+        else:
             self.blend_net.load_state_dict(blend_params, strict=True)
+        self.blend_net.to(dt)
         self._params = ([self.volume] + list(self.sdf_layer.parameters())
                         + list(self.blend_net.parameters()))
         self.optimizer = torch.optim.Adam(self._params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)

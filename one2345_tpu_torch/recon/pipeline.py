@@ -40,12 +40,17 @@ from one2345_tpu_torch.core.config import ReconConfig
 from one2345_tpu_torch.core.device import resolve_device
 from one2345_tpu_torch.geometry.projection import project_points
 from one2345_tpu_torch.geometry.sampling import bilinear_sample
+from one2345_tpu_torch.nn.init import flax_init_
 from one2345_tpu_torch.recon import mesh_extract
 from one2345_tpu_torch.recon.fast_renderer import extract_depth_maps
 from one2345_tpu_torch.recon.featurenet import PyramidFeatureFusion
 from one2345_tpu_torch.recon.rendering_network import GeneralRenderingNetwork
 from one2345_tpu_torch.recon.renderer import projector_features
-from one2345_tpu_torch.recon.sdf_network import SdfVolumeNetwork, SingleVarianceNetwork
+from one2345_tpu_torch.recon.sdf_network import (
+    LatentSDFLayer,
+    SdfVolumeNetwork,
+    SingleVarianceNetwork,
+)
 
 VERT_CHUNK = 65536  # vertices per color_chunk call (bounds the autograd graph)
 FIELD_CHUNK = 64**3  # lattice points per SDF-MLP call of field_grid
@@ -80,8 +85,9 @@ class ReconStage:
         and, with ``num_lods=2``, 'sdf_lod1' (and optionally 'fusion_lod1',
         'render_lod1', 'variance_lod1'); ``utils.convert_jax.recon_from_jax``
         makes them from the JAX ``ReconStage.params``; loaded with
-        ``strict=True``.  None -> modules initialised from ``seed``, each
-        SDF MLP geometrically (a sphere)
+        ``strict=True``.  None -> modules initialised from ``seed`` with
+        flax's initialisers (``nn.init.flax_init_``), each SDF MLP
+        geometrically (a sphere)
     :param device: None -> 'cuda' (raises without CUDA)
     """
 
@@ -128,6 +134,14 @@ class ReconStage:
                     self.render_lod1 = render_net()
                 if params is None or "variance_lod1" in params:
                     self.variance_lod1 = SingleVarianceNetwork(init_val=cfg.variance_init_val)
+        if params is None and self.device.type != "meta":
+            # flax's initialisers, as the JAX stage built from a seed; the
+            # SDF MLPs keep their geometric init, the blending nets take
+            # he_normal
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            for module in self.modules().values():
+                flax_init_(module, gen, he_normal=(GeneralRenderingNetwork,),
+                           skip=(LatentSDFLayer, SingleVarianceNetwork))
         for name, module in self.modules().items():
             if params is not None:
                 module.load_state_dict(params[name], strict=True)

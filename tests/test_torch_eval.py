@@ -29,21 +29,11 @@ from one2345_tpu_torch.recon.gltf import save_glb
 from one2345_tpu_torch.recon.mesh_extract import marching_tetrahedra_np, save_ply
 from one2345_tpu_torch.utils.convert_jax import clip_from_jax
 from one2345_tpu_torch.utils.png import read_png
-from tests.torch_port_helpers import randomize
+from tests.torch_port_helpers import assert_equal_but_ties, randomize
 
 METRIC_TOL = 1e-9  # relative, Chamfer (L2, L1) against scipy's cKDTree distances
 EMBED_TOL = 1e-5  # relative L2, CLIP embeddings of converted f32 weights
 CLIP_SIM_TOL = 1e-5  # abs, clip_sim of the sweep, port against JAX
-# the rasteriser's ties: a pixel may differ from the JAX loop's only where
-# two covering faces' float64 depths lie within TIE_DEPTH (relative: they
-# round to one f32 depth) or a covering face's least barycentric is within
-# TIE_EDGE of zero (the pixel centre on its edge: numpy's matmul and the
-# port's products round the barycentrics differently)
-TIE_DEPTH = 1e-6
-TIE_EDGE = 1e-9
-# elsewhere a pixel's colour may differ by the rounding of its barycentrics
-# (a few f32 ulps of a colour in [0, 1]; 1.2e-7 measured)
-COLOR_ULPS = 1e-6
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -157,46 +147,11 @@ def test_eval_cameras_match_jax(res):
         np.testing.assert_array_equal(w2c, jw2c)
 
 
-def _covering(verts, faces, K, w2c, x, y):
-    """(depths, least barycentrics) in float64 of the faces covering pixel
-    (x, y) within TIE_EDGE, by the JAX loop's formulas."""
-    vc = verts.astype(np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
-    uvw = vc @ K.T
-    z = uvw[:, 2]
-    uv = uvw[:, :2] / np.maximum(z[:, None], 1e-6)
-    p, tz = uv[faces], z[faces]
-    ok = (tz > 1e-4).all(axis=1)
-    m = np.stack([p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]], axis=-1)  # [F, 2, 2]
-    det = m[:, 0, 0] * m[:, 1, 1] - m[:, 0, 1] * m[:, 1, 0]
-    ok &= np.abs(det) >= 1e-12
-    d = np.array([x + 0.5, y + 0.5]) - p[:, 0]
-    b1 = (d[:, 0] * m[:, 1, 1] - d[:, 1] * m[:, 0, 1]) / det
-    b2 = (-d[:, 0] * m[:, 1, 0] + d[:, 1] * m[:, 0, 0]) / det
-    b = np.stack([1.0 - b1 - b2, b1, b2], axis=-1)
-    cover = ok & (b.min(axis=1) >= -TIE_EDGE)
-    return (b * tz).sum(axis=1)[cover], b.min(axis=1)[cover]
-
-
 @pytest.fixture(autouse=True)
 def _quiet_degenerate(recwarn):
     """_covering divides by the zero det of degenerate faces (then masked)."""
     with np.errstate(divide="ignore", invalid="ignore"):
         yield
-
-
-def assert_equal_but_ties(verts, faces, K, w2c, got, ref):
-    """Renders equal (rgb and alpha) except at tie pixels; returns the
-    number of tie pixels that differ."""
-    (rgb, alpha), (jrgb, jalpha) = got, ref
-    assert rgb.shape == jrgb.shape and rgb.dtype == np.float32 and alpha.dtype == bool
-    diff = (np.abs(rgb - jrgb).max(axis=-1) > COLOR_ULPS) | (alpha != jalpha)
-    for y, x in np.argwhere(diff):
-        depths, bmin = _covering(verts, faces, K, w2c, x, y)
-        d = np.sort(depths)
-        tie = (len(d) > 1 and (d[1] - d[0]) <= TIE_DEPTH * d[0]) or (
-            np.abs(bmin) <= TIE_EDGE).any()
-        assert tie, (x, y, d[:3], bmin)
-    return int(diff.sum())
 
 
 @pytest.mark.parametrize("shade", [True, False])

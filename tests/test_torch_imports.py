@@ -1,7 +1,8 @@
 """one2345_tpu_torch stands alone: it imports no JAX, no flax, no optax,
-nothing of one2345_tpu, and no PIL, cv2, scipy or tensorboardX (the machine
-with the card has none of them), and its entry points run on the card
-unless the caller asks for the CPU."""
+nothing of one2345_tpu, and no PIL, cv2, scipy, matplotlib or tensorboardX
+(the machine with the card has none of them), and its entry points run on
+the card unless the caller asks for the CPU.  The examples of the port
+(examples/torch_*.py) are held to the same list and import no JAX example."""
 
 import ast
 import json
@@ -14,7 +15,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "optax", "one2345_tpu", "PIL", "cv2", "scipy", "tensorboardX")
+FORBIDDEN = ("jax", "flax", "optax", "one2345_tpu", "PIL", "cv2", "scipy", "matplotlib",
+             "tensorboardX")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -86,6 +88,8 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.eval.sweep",
         "one2345_tpu_torch.utils.convert_weights",
         "one2345_tpu_torch.utils.convert_cli",
+        "one2345_tpu_torch.nn.init",
+        "one2345_tpu_torch.elevation.plotting",
     ):
         assert module in report["modules"]
     leaked = [
@@ -204,6 +208,41 @@ def test_sam_stage_and_service_default_to_the_card():
         thumbnail(np.zeros((600, 600, 3), np.uint8))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         recenter_rescale(np.zeros((8, 8, 4), np.uint8))
+
+
+def _imported(path: str) -> set:
+    """Every module an ``import`` statement of the file names, at any depth."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+            if node.module == "examples":
+                names |= {f"examples.{a.name}" for a in node.names}
+    return names
+
+
+def test_torch_examples_import_nothing_forbidden():
+    """examples/torch_*.py run on the card's machine: torch, numpy, einops,
+    the standard library and the port, and of the examples only the torch
+    twins (torch_generative_e2e imports torch_pipeline_wiring, as its JAX
+    twin imports pipeline_wiring)."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(REPO, "examples", "torch_*.py")))
+    names = {os.path.basename(p) for p in paths}
+    assert {"torch_pipeline_wiring.py", "torch_recon_quality.py", "torch_diffusion_quality.py",
+            "torch_generative_e2e.py"} <= names
+    for path in paths:
+        imported = _imported(path)
+        assert not [m for m in imported if m.split(".")[0] in FORBIDDEN], (path, imported)
+        examples = [m for m in imported if m.split(".")[0] == "examples" and m != "examples"]
+        assert all(m.split(".")[1].startswith("torch_") for m in examples), (path, examples)
+    assert "examples.torch_pipeline_wiring" in _imported(
+        os.path.join(REPO, "examples", "torch_generative_e2e.py"))
 
 
 def test_card_tests_import_no_jax():

@@ -72,6 +72,24 @@ def tiny_config(torch_side: bool):
     )
 
 
+def example_diffusion_config(torch_side: bool, res: int = 32):
+    """The tiny Zero123 of the quality examples (``model_channels`` 32) at
+    ``res``^2, one block per level, one CLIP layer, from either package."""
+    if torch_side:
+        from one2345_tpu_torch.core import config as c
+    else:
+        from one2345_tpu.core import config as c
+    return c.DiffusionConfig(
+        image_size=res, latent_size=res // 4,
+        unet=c.UNetConfig(model_channels=32, channel_mult=(1, 2), attention_resolutions=(2,),
+                          num_heads=4, num_res_blocks=1, dtype="float32"),
+        vae=c.VAEConfig(base_channels=24, channel_mult=(1, 2, 2), num_res_blocks=1,
+                        dtype="float32"),
+        clip=c.CLIPVisionConfig(image_size=32, patch_size=8, width=64, layers=1, heads=4,
+                                dtype="float32"),
+    )
+
+
 def max_err(a, b) -> float:
     a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
@@ -148,3 +166,50 @@ def recon_test_params(config: dict, seed: int, latent_std: float = 0.05,
                 v = leaves["v"]
                 v[-d_latent:] = latent_std * rng.standard_normal(v[-d_latent:].shape)
     return out
+
+
+# the rasteriser's ties: a pixel may differ from the JAX loop's only where
+# two covering faces' float64 depths lie within TIE_DEPTH (relative: they
+# round to one f32 depth) or a covering face's least barycentric is within
+# TIE_EDGE of zero (the pixel centre on its edge: numpy's matmul and the
+# port's products round the barycentrics differently)
+TIE_DEPTH = 1e-6
+TIE_EDGE = 1e-9
+# elsewhere a pixel's colour may differ by the rounding of its barycentrics
+# (a few f32 ulps of a colour in [0, 1]; 1.2e-7 measured)
+COLOR_ULPS = 1e-6
+
+
+def _covering(verts, faces, K, w2c, x, y):
+    """(depths, least barycentrics) in float64 of the faces covering pixel
+    (x, y) within TIE_EDGE, by the JAX loop's formulas."""
+    vc = verts.astype(np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
+    uvw = vc @ K.T
+    z = uvw[:, 2]
+    uv = uvw[:, :2] / np.maximum(z[:, None], 1e-6)
+    p, tz = uv[faces], z[faces]
+    ok = (tz > 1e-4).all(axis=1)
+    m = np.stack([p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]], axis=-1)  # [F, 2, 2]
+    det = m[:, 0, 0] * m[:, 1, 1] - m[:, 0, 1] * m[:, 1, 0]
+    ok &= np.abs(det) >= 1e-12
+    d = np.array([x + 0.5, y + 0.5]) - p[:, 0]
+    b1 = (d[:, 0] * m[:, 1, 1] - d[:, 1] * m[:, 0, 1]) / det
+    b2 = (-d[:, 0] * m[:, 1, 0] + d[:, 1] * m[:, 0, 0]) / det
+    b = np.stack([1.0 - b1 - b2, b1, b2], axis=-1)
+    cover = ok & (b.min(axis=1) >= -TIE_EDGE)
+    return (b * tz).sum(axis=1)[cover], b.min(axis=1)[cover]
+
+
+def assert_equal_but_ties(verts, faces, K, w2c, got, ref):
+    """Renders equal (rgb and alpha) except at tie pixels; returns the
+    number of tie pixels that differ."""
+    (rgb, alpha), (jrgb, jalpha) = got, ref
+    assert rgb.shape == jrgb.shape and rgb.dtype == np.float32 and alpha.dtype == bool
+    diff = (np.abs(rgb - jrgb).max(axis=-1) > COLOR_ULPS) | (alpha != jalpha)
+    for y, x in np.argwhere(diff):
+        depths, bmin = _covering(verts, faces, K, w2c, x, y)
+        d = np.sort(depths)
+        tie = (len(d) > 1 and (d[1] - d[0]) <= TIE_DEPTH * d[0]) or (
+            np.abs(bmin) <= TIE_EDGE).any()
+        assert tie, (x, y, d[:3], bmin)
+    return int(diff.sum())
