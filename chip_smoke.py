@@ -119,7 +119,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
    and as two tar shards: seconds per step, samples/s, peak memory, K1 /
    dq / dkv launches equal to the code's count (32 / 16 / 16 per step, 16
    K1 per UNet eval of the grid), metrics.jsonl, the 768x1024 grid and the
-   checkpoint (strict) read back; --model_shards 2 refused;
+   checkpoint (strict) read back; --model_shards 2 refused by create_mesh
+   in a world of one;
 17. eval: sweep.main --render_dir --clip_params (seeded ViT-L/14) on phase
    9's mesh as its own GT (.glb), against itself (.glb), a copy with each
    vertex moved 0.02 (.obj) and itself as .ply: the identical pair at the
@@ -138,6 +139,29 @@ Phases, one line each; any failure exits non-zero and prints no result:
    full width in memory; cli.main --sampler dpmpp --params on that file
    (1792 K1 launches): the same stage images and mesh as phase 12's
    --sampler dpmpp run on the in-memory tree; seconds and bytes per file;
+21. (after 18, before 19) multicard: the multi-card paths in a world of one
+   over NCCL (tcp://localhost): (a) the sharded Zero123 step
+   (make_sharded_train_step, FSDP2) at DiffusionConfig(), B=8, on a
+   (data=1, model=1) mesh, two steps against the unsharded step from phase
+   13's weights and draws (base lr 1e-2): losses within 1e-5, every
+   update and EMA change within 5e-3 relative L2, K1 / dq / dkv 32 / 16 /
+   16 per step; (b) the sharded reconstruction step at phase 14's full
+   width against the unsharded one: metrics within 1e-4, no parameter
+   element beyond 4 lr, at most 0.5% beyond 0.1 lr, running statistics
+   within 1e-4; (c) Zero123Stage(mesh) stage 1 of views 0-3 and 4-11 (25
+   DDIM entries) against the unsharded calls within 2e-3; (d)
+   train_zero123.main --model_shards 1 and train_recon.main, two steps
+   each in the group, their checkpoints read back;
+22. gloo card: two gloo ranks on cuda:0 (spawned): the sharded
+   reconstruction step at phase 14's cut config (both on its scene with
+   the draws of an unsharded step, which they are held to as in (b)) and
+   the sharded stage 1, held within 2e-3 to unsharded calls on each rank's
+   own views (against phase 21's whole-batch images the bf16 UNet at
+   another batch size differs by ~3e-2, printed);
+23. recon bf16: train_recon.main --dtype bfloat16 --num_lods 2 at full
+   width, 4 steps, seconds per step and peak memory beside phase 14's f32
+   run; one bf16 scene_loss + backward at phase 14's cut config against
+   phase 14's CPU float64 run, beside the card's f32 errors;
 19. examples: the in-env quality examples' torch twins
    (examples/torch_*.py) on the card: the flash kernels against their
    plain versions at the examples' shapes (4 heads of D = 16 and 24, T = 16
@@ -163,11 +187,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
    and optimizer ranges, the backward's share, the busy share.
 
 Then the kernels' JSON line (K1's launches are those of the CLI run, the
-main path from a raw image), the nvidia-smi line, and the result line.
+main path from a raw image; `launches_sharded` counts phase 21's sharded
+steps and, for K1, its sharded sampler), the nvidia-smi line, and the
+result line.
 Needs one card; writes nothing outside its checkout (the pipeline's and
 the CLI's files go to _smoke_out/, removed at the end of phases 9, 11 and
 12; the training scene, the finetune, Zero123 and eval data and runs to
-_smoke_scenes/, removed after phase 18).
+_smoke_scenes/, removed after phase 23).
 """
 
 from __future__ import annotations
@@ -279,6 +305,10 @@ RECON_STATS_TOL = 1e-5  # max abs, BN running statistics, card against CPU
 # global gradient the same way.  Floor: 1e-6 of the global norm.
 RECON_GRAD_TOL = 1e-3
 RECON_GRAD_FACTOR = 4.0
+# phase 14's f32 figures (seconds per step, peak memory) and the float64
+# reference of its lod1 check, which the bf16 phase prints its own beside
+RECON_F32: dict = {}
+RECON_REF: dict = {}
 # the blend's softmax is shift invariant: these biases' true gradient is 0,
 # held on both devices to the floor instead
 ZERO_GRADS = ("render.rgb_fc2.bias", "render_lod1.rgb_fc2.bias")
@@ -2570,6 +2600,10 @@ def recon_train_check(params, scene) -> str:
                      f" (CPU f32 vs f64 {rel_l2_np(vols['cpu']['volume'], vols['cpu64']['volume']):.2e})")
         if problems:
             fail(f"recon train (a) lod{num_lods - 1}{flips}: " + "; ".join(problems))
+        if num_lods == 2:  # the float64 reference of the bf16 phase's check
+            RECON_REF.update(cfg=cfg, cut=cut, draws=draws, mask=masks["cpu"], m64=m64,
+                             g64=g64, card_metrics=me_card, card_grads=e_card,
+                             card_global=glob_card)
         lines.append(
             f"lod{num_lods - 1} (num_lods={num_lods}){flips}: loss {m64['loss']:.6f}; metrics "
             f"against CPU f64: card f32 worst {max(me_card.values()):.2e} "
@@ -2640,6 +2674,7 @@ def recon_train_run(params, smi):
     if state["step"] != 4 or not same or len(state["params"]) != 8:
         fail(f"recon train (b): checkpoint step {state['step']}, params equal {same}")
     secs = [1.0 / r["steps_per_sec"] for r in steps]
+    RECON_F32.update(secs=secs, peak=peak)
     val = {k: v for r in vals for k, v in r.items() if k.startswith("val_")}
     log(
         f"phase recon train (b): train_recon.main --num_lods 2 --max_steps 4 --val_every 2 "
@@ -3122,7 +3157,7 @@ def phase_train_zero123(params, smi):
     remat, bf16 autocast) on phase 13's seeded weights, from the folders and
     from the shards: launches, seconds per step, samples/s, peak memory,
     metrics.jsonl, the sample grid and the checkpoint read back;
-    --model_shards 2 refused."""
+    --model_shards 2 refused by create_mesh in a world of one."""
     import shutil
 
     import torch
@@ -3198,13 +3233,14 @@ def phase_train_zero123(params, smi):
         shutil.rmtree(exp)
     try:
         train_zero123.main(["--data_root", views_root, "--model_shards", "2"])
-    except SystemExit as e:
+    except ValueError as e:
         refusal = str(e)
     else:
-        fail("train_zero123: --model_shards 2 was not refused")
-    if "one card" not in refusal:
+        fail("train_zero123: --model_shards 2 was not refused in a world of one")
+    if "!= 1 devices" not in refusal:
         fail(f"train_zero123: --model_shards 2 refused with {refusal!r}")
-    log(f"phase train_zero123: --model_shards 2 refused: {refusal}")
+    log(f"phase train_zero123: --model_shards 2 refused in a world of one (create_mesh): "
+        f"{refusal}")
     return counts
 
 
@@ -3769,6 +3805,480 @@ def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
         shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
 
 
+# --------------------------------------------------------------- multi-card
+# The multi-card paths on the one card: a world of one over NCCL (phase 21,
+# every path against its unsharded twin) and two gloo ranks on cuda:0
+# (phase 22: gloo's all-reduce, broadcast and all-gather take CUDA tensors;
+# NCCL refuses two ranks on one card), then bf16 reconstruction training
+# (phase 23).  The sharded Zero123 steps compare at base lr 1e-2 (the
+# CPU parity tests' choice), which lifts the second step's update (lr 1e-4
+# after the warmup's first 1e-8) far above the weights' f32 rounding.
+MC_BASE_LR = 1e-2
+MC_STEPS = 2
+MC_LOSS_TOL = 1e-5  # relative, a sharded step's loss against the unsharded one's
+MC_UPDATE_TOL = 5e-3  # relative L2 of each tensor's update and EMA change
+MC_IMG_TOL = 2e-3  # max abs, a sharded sampling call's images against the unsharded's
+MC_SAMPLE_STEPS = 25
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def recon_step_diff(metrics, ref_metrics, params, ref_params, lr: float) -> tuple:
+    """(worst metric relative error, elements of the parameters beyond 4 lr,
+    beyond 0.1 lr, their count, worst running-statistic abs error) of one
+    reconstruction step's result against another's (state dicts, any
+    device)."""
+    worst_m = max(abs(float(metrics[k]) - float(v)) / max(abs(float(v)), 1e-30)
+                  for k, v in ref_metrics.items())
+    far = off = total = 0
+    stats = 0.0
+    for key, sd in ref_params.items():
+        for name, ref in sd.items():
+            d = (params[key][name].detach().cpu().double() - ref.detach().cpu().double()).abs()
+            if "running" in name:
+                stats = max(stats, float(d.max()))
+                continue
+            far += int((d > 4 * lr).sum())
+            off += int((d > 0.1 * lr).sum())
+            total += d.numel()
+    return worst_m, far, off, total, stats
+
+
+def check_recon_step(name: str, diff: tuple):
+    worst_m, far, off, total, stats = diff
+    if not (worst_m <= RECON_LOSS_TOL and far == 0 and off <= 0.005 * total
+            and stats <= 1e-4):
+        fail(f"{name}: metrics worst {worst_m}, {far} elements beyond 4 lr, {off} of {total} "
+             f"beyond 0.1 lr, running stats {stats}")
+    return (f"metrics worst rel {worst_m:.2e}, {off} of {total} parameter elements beyond "
+            f"0.1 lr (none beyond 4 lr), running stats max abs {stats:.2e}")
+
+
+def zero123_sharded_check(stage, params, mesh) -> tuple:
+    """(a) the sharded Zero123 train step at DiffusionConfig(), B=8, on the
+    (1, 1) mesh with the parameters fully_shard'ed, against the unsharded
+    step from the same weights and generator draws.  Returns (line, the
+    sharded steps' K1 / dq / dkv launches)."""
+    import torch
+
+    from one2345_tpu_torch.ops.flash_attention import flash_attention as f
+    from one2345_tpu_torch.training.zero123_trainer import Zero123Trainer
+
+    batch = train_batch(TRAIN_BATCH)
+    trainable = {k: params[k] for k in ("unet", "cc_projection")}
+    one = Zero123Trainer(stage, trainable, remat=True, device="cuda", base_lr=MC_BASE_LR)
+    ref_losses = [float(one.train_step(batch)) for _ in range(MC_STEPS)]
+    ref_p, ref_e = one.state_dicts(), one.ema_state_dicts()
+    del one
+    sh = Zero123Trainer(stage, trainable, remat=True, device="cuda", base_lr=MC_BASE_LR)
+    step = sh.make_sharded_train_step(mesh, shard_params=True)
+    losses, secs, totals = [], [], [0, 0, 0]
+    for i in range(MC_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+        if counts != (32, 16, 16):
+            fail(f"multicard (a) step {i + 1}: K1/dq/dkv launches {counts}, expected (32, 16, 16)")
+        totals = [a + b for a, b in zip(totals, counts)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sharded = [p for p in sh._params if hasattr(p, "to_local")]
+    if len(sharded) != len(sh._params) or not sh.optimizer.state:
+        fail(f"multicard (a): {len(sharded)} of {len(sh._params)} parameters are DTensors")
+    for a, b in zip(losses, ref_losses):
+        if not (math.isfinite(a) and abs(a - b) <= MC_LOSS_TOL * abs(b)):
+            fail(f"multicard (a): sharded losses {losses}, unsharded {ref_losses}")
+    got_p, got_e = sh.state_dicts(), sh.ema_state_dicts()
+    worst, worst_name, n = 0.0, "", 0
+    for name, sd in ref_p.items():
+        for k, ref in sd.items():
+            w0 = trainable[name][k].to(ref.device)
+            for got, want in ((got_p[name][k], ref), (got_e[name][k], ref_e[name][k])):
+                d_ref = (want - w0).double()
+                norm = float(d_ref.norm())
+                if norm == 0:
+                    if float((got - w0).abs().max()) != 0:
+                        fail(f"multicard (a): {name}.{k} moved, its unsharded twin did not")
+                    continue
+                rel = float(((got - w0).double() - d_ref).norm()) / norm
+                n += 1
+                if rel > worst:
+                    worst, worst_name = rel, f"{name}.{k}"
+    if worst > MC_UPDATE_TOL:
+        fail(f"multicard (a): update of {worst_name} {worst} from the unsharded step's")
+    del sh, step, got_p, got_e, ref_p, ref_e
+    return (f"(a) sharded Zero123 step, DiffusionConfig(), B={TRAIN_BATCH}, (data=1, model=1) "
+            f"mesh, FSDP2 over model: losses {', '.join(f'{x:.6f}' for x in losses)} (unsharded "
+            f"{', '.join(f'{x:.6f}' for x in ref_losses)}), {n} updates and EMA changes worst "
+            f"relative L2 {worst:.2e} ({worst_name}) from the unsharded step's, seconds per "
+            f"step {', '.join(f'{x:.3f}' for x in secs)}, K1/dq/dkv launches (32, 16, 16) per "
+            f"step, peak mem {peak:.2f} GiB"), totals
+
+
+def recon_world_one(cut: bool = False) -> tuple:
+    """Phase 14's full-width config (ReconConfig(num_lods=2)), its seeded
+    weights and its scene; with ``cut``, the config and scene of its
+    card-against-CPU check (RECON_TRAIN_CHECK, RECON_TRAIN_VIEWS)."""
+    import torch
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.training.data import ReconScenesDataset
+
+    cfg = ReconConfig(num_lods=2, **(RECON_TRAIN_CHECK if cut else {}))
+    params = recon_params(seed=30, num_lods=2)
+    ds = ReconScenesDataset(os.path.join(SCENES_OUT, "data"), n_rays=512)
+    scene = ds.sample_scene(0, generator=torch.Generator().manual_seed(3))
+    if cut:
+        scene = {k: (v[RECON_TRAIN_VIEWS] if k in ("images", "affines", "w2cs", "intrinsics")
+                     else v[:cfg.n_rays] if k.startswith("rays_") else v)
+                 for k, v in scene.items()}
+    return cfg, params, scene
+
+
+def recon_unsharded_step(cfg, params, scene) -> tuple:
+    """One unsharded step from a fresh trainer: (its metrics, its state on
+    the host, the draws it took from the generator, its seconds)."""
+    import torch
+
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+    from one2345_tpu_torch.training.recon_trainer import ReconTrainer
+
+    one = ReconTrainer(ReconStage(cfg, params=params, device="cuda"), cfg)
+    draws = {k: v.cpu() for k, v in one.scene_draws(len(scene["rays_o"])).items()}
+    one.generator.manual_seed(0)  # the trainer's seed: the step draws the same
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = {k: float(v) for k, v in one.train_step(scene).items()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    state = {k: {n: t.detach().cpu() for n, t in mod.state_dict().items()}
+             for k, mod in one.modules.items()}
+    return m, state, draws, dt
+
+
+def recon_sharded_check(mesh) -> str:
+    """(b) the sharded reconstruction step at phase 14's full width on the
+    one-rank data mesh against the unsharded step (the same weights and
+    generator draws): metrics, parameters and running statistics."""
+    import torch
+
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+    from one2345_tpu_torch.training.recon_trainer import ReconTrainer
+
+    cfg, params, scene = recon_world_one()
+    ref_m, ref_state, _, ref_dt = recon_unsharded_step(cfg, params, scene)
+    sh = ReconTrainer(ReconStage(cfg, params=params, device="cuda"), cfg)
+    step = sh.make_sharded_train_step(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(scene)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: m_.state_dict() for k, m_ in sh.modules.items()}
+    line = check_recon_step("multicard (b)", recon_step_diff(m, ref_m, got, ref_state,
+                                                              cfg.learning_rate))
+    return (f"(b) sharded recon step, ReconConfig(num_lods=2) at full width, one scene per "
+            f"rank on the (data=1) mesh: loss {float(m['loss']):.6f} (unsharded "
+            f"{ref_m['loss']:.6f}), {line}, {dt:.3f} s (unsharded, cold, {ref_dt:.3f} s)")
+
+
+def sampler_sharded_check(stage, mesh) -> tuple:
+    """(c) Zero123Stage stage 1 of views 0-3, then 4-11, sharded over the
+    one-rank data mesh against the unsharded calls.  Returns (line, the
+    unsharded images, the sharded calls' K1 launches)."""
+    import torch
+
+    from one2345_tpu_torch.ops.flash_attention import flash_attention as f
+
+    image = input_image(stage.config.image_size)
+    out, launches = {}, {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        stage.mesh = m
+        f.launch_count = 0
+        try:
+            out[name] = [stage.stage1(image, 5, indices=idx, steps=MC_SAMPLE_STEPS)
+                         for idx in ([0, 1, 2, 3], list(range(4, 12)))]
+        finally:
+            stage.mesh = None
+        torch.cuda.synchronize()
+        launches[name] = f.launch_count
+    errs = [float((a - b).abs().max()) for a, b in zip(out["sharded"], out["unsharded"])]
+    if max(errs) > MC_IMG_TOL or launches["sharded"] != launches["unsharded"] \
+            or launches["sharded"] % 16 or not launches["sharded"]:
+        fail(f"multicard (c): images max abs {errs}, K1 launches {launches}")
+    return (f"(c) Zero123Stage(mesh) stage 1 of views 0-3 then 4-11 ({MC_SAMPLE_STEPS} DDIM "
+            f"entries): max abs against the unsharded calls {errs[0]:.2e} / {errs[1]:.2e}, K1 "
+            f"launches {launches['sharded']} (unsharded {launches['unsharded']}, 16 per UNet "
+            f"eval)"), [x.cpu() for x in out["unsharded"]], launches["sharded"]
+
+
+def cli_sharded_check() -> str:
+    """(d) train_zero123.main --model_shards 1 and train_recon.main, two
+    steps each inside the process group (the sharded steps), on phase 16's
+    and phase 14's data and weights; their whole checkpoints read back into
+    one-rank trainers."""
+    import torch
+
+    from one2345_tpu_torch.core import checkpoint
+    from one2345_tpu_torch.training import train_recon, train_zero123
+
+    root = os.path.join(SCENES_OUT, "zero123")
+    exp = os.path.join(SCENES_OUT, "mc_zero123")
+    t0 = time.perf_counter()
+    tr = train_zero123.main(["--data_root", os.path.join(root, "views"), "--init_params",
+                             os.path.join(root, "init.pt"), "--batch_size", str(TRAIN_BATCH),
+                             "--max_steps", "2", "--log_every", "1", "--ckpt_every", "100",
+                             "--sample_every", "0", "--model_shards", "1", "--exp_dir", exp])
+    z_s = time.perf_counter() - t0
+    state = checkpoint.restore(os.path.join(exp, "step_000002"), map_location="cuda")
+    for key, module in tr.modules.items():
+        module.load_state_dict(state[key], strict=True)
+    z_recs = read_metrics(os.path.join(exp, "metrics.jsonl"))
+    if tr.step != 2 or tr._grad_sync is None or len(z_recs) != 2:
+        fail(f"multicard (d): train_zero123 step {tr.step}, records {z_recs}")
+    del tr, state
+    exp_r = os.path.join(SCENES_OUT, "mc_recon")
+    t0 = time.perf_counter()
+    rt = train_recon.main(["--data_root", os.path.join(SCENES_OUT, "data"), "--init_params",
+                           os.path.join(SCENES_OUT, "init.pt"), "--num_lods", "2",
+                           "--max_steps", "2", "--log_every", "1", "--ckpt_every", "100",
+                           "--exp_dir", exp_r])
+    r_s = time.perf_counter() - t0
+    r_state = checkpoint.restore(os.path.join(exp_r, "step_000002"))
+    same = all(torch.equal(r_state["params"][k][n], t.cpu()) for k, m in rt.modules.items()
+               for n, t in m.state_dict().items())
+    r_recs = read_metrics(os.path.join(exp_r, "metrics.jsonl"))
+    if rt.step != 2 or not same or r_state["step"] != 2 or len(r_recs) != 2 \
+            or not all(math.isfinite(r["loss"]) for r in r_recs):
+        fail(f"multicard (d): train_recon step {rt.step}, checkpoint equal {same}, {r_recs}")
+    return (f"(d) inside the group: train_zero123.main --model_shards 1 --max_steps 2 "
+            f"({z_s:.1f} s, losses {', '.join(f'{r['loss']:.4f}' for r in z_recs)}, the "
+            f"(1, 1) mesh's all-reduced step, checkpoint read back strict); train_recon.main "
+            f"--num_lods 2 --max_steps 2 ({r_s:.1f} s, losses "
+            f"{', '.join(f'{r['loss']:.4f}' for r in r_recs)}, sharded step, checkpoint equal "
+            f"to the trainer)")
+
+
+def phase_multicard(stage, params, smi):
+    """Phase 21: the multi-card paths in a world of one over NCCL.  Returns
+    the unsharded stage-1 images phase 22 holds its two ranks to, and the
+    K1 / dq / dkv launches of the sharded step and the sharded sampler."""
+    from one2345_tpu_torch.core import meshes
+
+    t0 = time.perf_counter()
+    with meshes.process_group("cuda:0", rank=0, world_size=1,
+                              init_method=f"tcp://localhost:{free_port()}"):
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        if backend != "nccl":
+            fail(f"multicard: backend {backend}, expected nccl")
+        line_a, launches = zero123_sharded_check(
+            stage, params, meshes.create_mesh(("data", "model"), (1, 1)))
+        log(f"phase multicard: {line_a} | {smi}")
+        data = meshes.create_mesh(("data",))
+        log(f"phase multicard: {recon_sharded_check(data)} | {smi}")
+        line_c, images, sampler_k1 = sampler_sharded_check(stage, data)
+        launches[0] += sampler_k1
+        log(f"phase multicard: {line_c} | {smi}")
+        log(f"phase multicard: {cli_sharded_check()} | {smi}")
+    log(f"phase multicard: world of one over NCCL, {time.perf_counter() - t0:.1f} s in all")
+    return images, launches
+
+
+def gloo_card_rank(rank: int, world: int, port: int, q, draws, steps: int):
+    """One of phase 22's gloo ranks on cuda:0: the sharded reconstruction
+    step at phase 14's cut config with the world-one draws, then stage 1
+    of views 0-3 and 4-11 on a data mesh over both ranks."""
+    import traceback
+
+    try:
+        sys.path.insert(0, REPO)
+        import torch
+
+        from one2345_tpu_torch.core import checkpoint, meshes
+        from one2345_tpu_torch.core.config import DiffusionConfig
+        from one2345_tpu_torch.diffusion.zero123 import Zero123Stage
+        from one2345_tpu_torch.ops.flash_attention import flash_attention as f
+        from one2345_tpu_torch.recon.pipeline import ReconStage
+        from one2345_tpu_torch.training.recon_trainer import ReconTrainer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        meshes.init_process_group("cuda:0", backend="gloo", rank=rank, world_size=world,
+                                  init_method=f"tcp://localhost:{port}")
+        mesh = meshes.create_mesh(("data",))
+        cfg, params, scene = recon_world_one(cut=True)
+        tr = ReconTrainer(ReconStage(cfg, params=params, device="cuda:0"), cfg)
+        t0 = time.perf_counter()
+        m = tr.make_sharded_train_step(mesh)(scene, draws)
+        torch.cuda.synchronize()
+        recon_s = time.perf_counter() - t0
+        # numpy through the queue: a tensor would be shared by a file
+        # descriptor that dies with this process
+        state = {k: {n: t.detach().cpu().numpy() for n, t in mod.state_dict().items()}
+                 for k, mod in tr.modules.items()}
+        del tr
+        zparams = checkpoint.restore(os.path.join(SCENES_OUT, "zero123", "init.pt"))
+        stage = Zero123Stage(DiffusionConfig(), params=zparams, device="cuda:0", mesh=mesh)
+        del zparams
+        image = input_image(stage.config.image_size)
+        f.launch_count = 0
+        t0 = time.perf_counter()
+        imgs = [stage.stage1(image, 5, indices=idx, steps=steps).cpu().numpy()
+                for idx in ([0, 1, 2, 3], list(range(4, 12)))]
+        sample_s = time.perf_counter() - t0
+        q.put((rank, "ok", ({k: float(v) for k, v in m.items()}, state, imgs, f.launch_count,
+                            recon_s, sample_s)))
+        meshes.destroy_process_group()
+    except BaseException:
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def phase_gloo_card(stage, images, smi):
+    """Phase 22: two gloo ranks on cuda:0 (spawned processes): the
+    reconstruction data parallelism at phase 14's cut config (both ranks on
+    its scene with the world-one draws, so the mean of their gradients and
+    statistics is the world-one step's; full width would need two 34 GiB
+    steps beside this process) and the sharded stage 1 at full width (each
+    rank samples half the views and the all-gather brings them all).  The
+    images are held to world-one calls on each rank's own views: a bf16
+    UNet at another batch size rounds otherwise, and 25 DDIM entries carry
+    that to ~3e-2 (printed against phase 21's whole-batch images)."""
+    import multiprocessing
+    import queue as queue_mod
+
+    import torch
+
+    ref_m, ref_state, draws, _ = recon_unsharded_step(*recon_world_one(cut=True))
+    image = input_image(stage.config.image_size)
+    per_rank = [torch.cat([stage.stage1(image, 5, indices=idx[:len(idx) // 2],
+                                        steps=MC_SAMPLE_STEPS),
+                           stage.stage1(image, 5, indices=idx[len(idx) // 2:],
+                                        steps=MC_SAMPLE_STEPS)]).cpu()
+                for idx in ([0, 1, 2, 3], list(range(4, 12)))]
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=gloo_card_rank, args=(r, 2, port, q, draws, MC_SAMPLE_STEPS))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            try:
+                rank, status, value = q.get(timeout=600)
+            except queue_mod.Empty:
+                fail("gloo card: a rank gave no result in 600 s")
+            if status != "ok":
+                fail(f"gloo card: rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    lines = []
+    for rank in (0, 1):
+        m, state, imgs, launches, recon_s, sample_s = results[rank]
+        state = {k: {n: torch.from_numpy(t) for n, t in sd.items()} for k, sd in state.items()}
+        imgs = [torch.from_numpy(x) for x in imgs]
+        recon_line = check_recon_step(f"gloo card rank {rank} (recon)",
+                                      recon_step_diff(m, ref_m, state, ref_state, 2e-4))
+        errs = [float((a - b).abs().max()) for a, b in zip(imgs, per_rank)]
+        whole = [float((a - b).abs().max()) for a, b in zip(imgs, images)]
+        if max(errs) > MC_IMG_TOL or launches % 16 or not launches:
+            fail(f"gloo card rank {rank}: images max abs {errs} from world one on the ranks' "
+                 f"views, K1 {launches}")
+        lines.append(f"rank {rank}: recon step {recon_s:.3f} s, {recon_line}; stage 1 "
+                     f"{sample_s:.2f} s, images max abs from world one on each rank's views "
+                     f"{errs[0]:.2e} / {errs[1]:.2e} (from the whole-batch calls {whole[0]:.2e} "
+                     f"/ {whole[1]:.2e}), K1 launches {launches}")
+    log(f"phase gloo card: two gloo ranks on cuda:0, {time.perf_counter() - t0:.1f} s with "
+        f"their start-up: " + "; ".join(lines) + f" | {smi}")
+
+
+def phase_recon_bf16(smi):
+    """Phase 23: bf16 reconstruction training.  train_recon.main --dtype
+    bfloat16 at phase 14's full width, 4 steps, beside phase 14's f32 run;
+    one bf16 scene_loss and its backward at phase 14's cut config against
+    its CPU float64 reference, beside the card's f32 errors."""
+    import torch
+
+    from one2345_tpu_torch.core.config import ReconConfig
+    from one2345_tpu_torch.recon.pipeline import ReconStage
+    from one2345_tpu_torch.training import train_recon
+    from one2345_tpu_torch.training.recon_trainer import ReconTrainer
+
+    exp = os.path.join(SCENES_OUT, "exp_bf16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = train_recon.main(["--data_root", os.path.join(SCENES_OUT, "data"), "--init_params",
+                           os.path.join(SCENES_OUT, "init.pt"), "--num_lods", "2", "--dtype",
+                           "bfloat16", "--max_steps", "4", "--log_every", "1",
+                           "--ckpt_every", "100", "--exp_dir", exp])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = read_metrics(os.path.join(exp, "metrics.jsonl"))
+    f32_types = all(t.dtype == torch.float32 for m in tr.modules.values()
+                    for t in m.state_dict().values())
+    adam = all(v.dtype == torch.float32 for s in tr.optimizer.state.values() for v in s.values()
+               if torch.is_tensor(v) and v.is_floating_point())
+    if tr.step != 4 or [r["step"] for r in recs] != [0, 1, 2, 3] or not f32_types or not adam \
+            or not all(math.isfinite(v) for r in recs for v in r.values()):
+        fail(f"recon bf16: step {tr.step}, f32 state {f32_types}, f32 Adam {adam}, {recs}")
+    secs = [1.0 / r["steps_per_sec"] for r in recs]
+    f32 = RECON_F32
+    log(f"phase recon bf16: train_recon.main --dtype bfloat16 --num_lods 2 --max_steps 4 at "
+        f"full width (33 views at 256^2, 96^3 then 192^3, 512 rays): {total:.2f} s in all, "
+        f"seconds per step {', '.join(f'{x:.3f}' for x in secs)} (f32, phase 14: "
+        f"{', '.join(f'{x:.3f}' for x in f32['secs'])}, its step 2 with the validation "
+        f"renders), loss {', '.join(f'{r['loss']:.4f}' for r in recs)}, peak mem {peak:.2f} GiB "
+        f"(f32 {f32['peak']:.2f} GiB); weights, running statistics and Adam state f32 | {smi}")
+    del tr
+    ref = RECON_REF
+    cfg = ref["cfg"].replace(dtype="bfloat16")
+    stage = ReconStage(cfg, params=recon_params(seed=30, num_lods=2), device="cuda",
+                       f32_weights=True)
+    stage.prune_occupancy = lambda volume, mask: ref["mask"].to(volume.device)
+    tr = ReconTrainer(stage, cfg)
+    loss, metrics = tr.scene_loss(ref["cut"], RECON_TRAIN_STEP, ref["draws"])
+    loss.backward()
+    grads = {f"{k}.{n}": p.grad.detach().cpu().double() for k, m in tr.modules.items()
+             for n, p in m.named_parameters()}
+    g64, m64 = ref["g64"], ref["m64"]
+    me = {k: abs(float(metrics[k]) - v) / max(abs(v), 1e-30) for k, v in m64.items()}
+    norm64 = math.sqrt(sum(float((g ** 2).sum()) for g in g64.values()))
+    per = {k: float((grads[k] - r).norm()) / max(float(r.norm()), 1e-6 * norm64)
+           for k, r in g64.items() if k not in ZERO_GRADS}
+    glob = math.sqrt(sum(float(((grads[k] - r) ** 2).sum()) for k, r in g64.items())) / norm64
+    if not (math.isfinite(float(loss)) and all(math.isfinite(v) for v in per.values())):
+        fail(f"recon bf16: loss {float(loss)}, gradient errors {per}")
+    worst = max(per, key=per.get)
+    cw = max(ref["card_grads"], key=ref["card_grads"].get)
+    log(f"phase recon bf16: one bf16 scene_loss + backward at the cut config (9 views, 48^3 / "
+        f"96^3, 64 rays, lod1) against the CPU float64 run: loss {float(loss):.6f} (f64 "
+        f"{m64['loss']:.6f}), metrics worst rel {max(me.values()):.2e} ({max(me, key=me.get)}; "
+        f"card f32 {max(ref['card_metrics'].values()):.2e}), gradients worst rel L2 "
+        f"{per[worst]:.2e} ({worst}; card f32 {ref['card_grads'][cw]:.2e}, {cw}), global "
+        f"{glob:.2e} (card f32 {ref['card_global']:.2e}) | {smi}")
+
+
 # ------------------------------------------------------------ examples
 # The gates of the JAX examples' tests (tests/test_pipeline_wiring.py,
 # test_recon_quality.py, test_diffusion_quality.py, test_generative_e2e.py),
@@ -3995,6 +4505,9 @@ def main() -> int:
         phase_eval(pipeline_mesh, smi)
         phase_convert(stages, sam_w, cli_run_dpmpp, smi)
         del sam_w, cli_run_dpmpp
+        world_one_images, sharded_launches = phase_multicard(stage, params, smi)
+        phase_gloo_card(stage, world_one_images, smi)
+        phase_recon_bf16(smi)
     finally:
         shutil.rmtree(SCENES_OUT, ignore_errors=True)
     log(f"{SCENES_OUT} removed")
@@ -4019,6 +4532,7 @@ def main() -> int:
         "source": "one2345_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "one2345_tpu/ops/flash_attention.py:36",
         "launches": launches,
+        "launches_sharded": sharded_launches[0],
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": head["ms"],
         "device_ms": head["device_ms"],
@@ -4028,7 +4542,8 @@ def main() -> int:
         "bound_terms": head["bound_terms"],
         "library_ms": head["library_ms"],
     }]
-    for kernel, line, n in (("dq", 71, dq_launches), ("dkv", 99, dkv_launches)):
+    for kernel, line, n, n_sh in (("dq", 71, dq_launches, sharded_launches[1]),
+                                  ("dkv", 99, dkv_launches, sharded_launches[2])):
         row = bwd_rows[TRAIN_HEADLINE][kernel]
         kernels.append({
             "name": f"flash_attention_bwd_{kernel}",
@@ -4036,6 +4551,7 @@ def main() -> int:
             "source": "one2345_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"one2345_tpu/ops/flash_attention.py:{line}",
             "launches": n,
+            "launches_sharded": n_sh,
             "max_abs_err": max(r[kernel]["max_abs_err"] for r in bwd_rows.values()),
             "ms": row["ms"],
             "device_ms": row["device_ms"],

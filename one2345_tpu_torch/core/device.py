@@ -2,11 +2,14 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` -> the card; raises when CUDA is absent (pass 'cpu' to run
+    """``None`` -> the card: ``cuda:LOCAL_RANK`` under ``torchrun`` (one card
+    per rank), else ``cuda``; raises when CUDA is absent (pass 'cpu' to run
     the plain path on the CPU)."""
     if device is None:
         if not torch.cuda.is_available():
@@ -14,5 +17,6 @@ def resolve_device(device) -> torch.device:
                 "CUDA is not available: one2345_tpu_torch runs on the card by "
                 "default; pass device='cpu' to run on the CPU"
             )
-        device = "cuda"
+        local = os.environ.get("LOCAL_RANK")
+        device = f"cuda:{int(local)}" if local is not None else "cuda"
     return torch.device(device)

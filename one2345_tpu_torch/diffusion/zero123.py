@@ -117,11 +117,18 @@ class Zero123Stage:
         CCProjection), as the JAX stage.  With ``quant="int8"`` the 'unet'
         state is f32 or already quantized.
     :param device: None -> 'cuda' (raises without CUDA)
+    :param mesh: a ``core.meshes.create_mesh`` mesh with a ``data`` axis:
+        every sampler call pads its view batch to a multiple of the ``data``
+        size (repeating the last view, its pose token and its noise id),
+        each rank samples its rows, and the ranks all-gather the images;
+        every rank returns the whole batch.  Noise is keyed per view id, so
+        a sharded call gives the images of the unsharded one.
     """
 
     def __init__(self, config: DiffusionConfig | None = None, params=None, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.config = cfg = config or DiffusionConfig()
+        self.mesh = mesh
         self.device = resolve_device(device)
         if cfg.unet.quant not in QUANT_MODES:
             # a typo ('INT8', 'w8a8') must not run the bf16 path
@@ -246,8 +253,30 @@ class Zero123Stage:
             # a typo must not run another sampler
             raise ValueError(f"unknown sampler {sampler!r}: ddim|plms|dpmpp")
         cond = torch.as_tensor(cond_images, dtype=torch.float32, device=self.device)
-        B = cond.shape[0]
-        ids = list(range(B)) if noise_ids is None else [int(i) for i in noise_ids]
+        T = torch.as_tensor(T, dtype=torch.float32, device=self.device)
+        ids = list(range(cond.shape[0])) if noise_ids is None else [int(i) for i in noise_ids]
+        if self.mesh is None:
+            return self._sample(cond, T, ids, seed, steps, cfg_scale, sampler, noise_fn)
+        from one2345_tpu_torch.core.meshes import axis_size, shard_batch
+
+        # pad to the data axis (4 -> 8 views on 8 ranks), sample this rank's
+        # rows, gather, slice the pad rows off
+        B, n = cond.shape[0], axis_size(self.mesh, "data")
+        pad = (-B) % n
+        if pad:
+            cond = torch.cat([cond, cond[-1:].expand(pad, *cond.shape[1:])])
+            T = torch.cat([T, T[-1:].expand(pad, *T.shape[1:])])
+            ids = ids + ids[-1:] * pad
+        local = shard_batch(self.mesh, {"cond": cond, "T": T, "ids": np.asarray(ids)})
+        out = self._sample(local["cond"], local["T"], [int(i) for i in local["ids"]], seed,
+                           steps, cfg_scale, sampler, noise_fn).contiguous()
+        parts = [torch.empty_like(out) for _ in range(n)]
+        torch.distributed.all_gather(parts, out, group=self.mesh.get_group("data"))
+        return torch.cat(parts)[:B]
+
+    def _sample(self, cond, T, ids, seed, steps, cfg_scale, sampler, noise_fn):
+        """The sampler loop over one batch of views (``sample_tokens``)."""
+        cfg, B = self.config, cond.shape[0]
         if noise_fn is None:
             def draw_noise(draw, shape):
                 return self.per_view_noise(seed, draw, ids, shape)
@@ -258,7 +287,6 @@ class Zero123Stage:
                     noise = np.asarray(noise)
                 return torch.as_tensor(noise, dtype=torch.float32, device=self.device)
 
-        T = torch.as_tensor(T, dtype=torch.float32, device=self.device)
         ctx, concat = self.encode_conditioning(cond, T)
         # CFG double batch: [uncond ++ cond], zero unconditional inputs
         ctx_in = torch.cat([torch.zeros_like(ctx), ctx])

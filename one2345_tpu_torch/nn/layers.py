@@ -19,10 +19,17 @@ statistics with the running ones updated as flax updates them (momentum
 unbiased one).
 - ``WNDense``: weight-normalised dense layer ``w = g * v / ||v||`` computed
   explicitly, with ``v`` stored [in, out] as in the JAX module.
+
+A conv or linear computes in ``compute_dtype(m)``: its weight's dtype (an
+inference stage casts the weights once), or the dtype ``set_compute_dtype``
+gave it, over weights that stay f32 and are cast at use, as flax's
+``dtype=bfloat16`` with ``param_dtype`` f32 (bf16 training: the gradients
+reach the f32 weights through the cast).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -32,14 +39,40 @@ from torch import nn
 LEAKY_SLOPE = 0.01  # inplace_abn default activation slope
 
 
+def compute_dtype(m: nn.Module) -> torch.dtype:
+    """The dtype the conv or linear ``m`` computes in."""
+    return getattr(m, "compute_dtype", None) or m.weight.dtype
+
+
+def _cast_forward(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    dt = m.compute_dtype
+    w = m.weight.to(dt)
+    b = None if m.bias is None else m.bias.to(dt)
+    if isinstance(m, nn.Linear):
+        return F.linear(x.to(dt), w, b)
+    return m._conv_forward(x.to(dt), w, b)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Run every conv and linear of ``module`` in ``dtype`` over its own
+    weights, cast at each use (they keep their dtype and take the
+    gradients); the norms are left as they are."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            m.compute_dtype = dtype
+            m.forward = functools.partial(_cast_forward, m)
+    return module
+
+
 def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
 class BatchNorm(nn.Module):
     """Batch norm over dim 1 (eps 1e-5).  The statistics are at least f32
-    (flax promotes them so); the affine map is applied in the input's
-    dtype, as flax applies it in the module dtype.
+    (flax's ``force_float32_reductions``), and so is the affine map, whose
+    result is rounded once to the input's dtype, as flax's ``_normalize``
+    (a half-precision input comes out in half precision).
 
     ``train=True`` normalises with the batch statistics, var = E[x^2] -
     E[x]^2 clipped at 0 (flax's ``use_fast_variance``), and updates the
@@ -64,9 +97,9 @@ class BatchNorm(nn.Module):
 
     def _normalize(self, x, mean, var):
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        mean = mean.to(x.dtype).view(shape)
-        return (x - mean) * inv.to(x.dtype).view(shape) + self.bias.to(x.dtype).view(shape)
+        inv = (torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        y = (x - mean.view(shape)) * inv + self.bias.view(shape)
+        return y.to(x.dtype)
 
     def forward(self, x, train: bool = False):
         if not train:
@@ -83,7 +116,14 @@ class MaskedBatchNorm(BatchNorm):
     """``BatchNorm`` whose output is zero outside the mask ([N, 1, ...] of
     {0, 1}).  In training its statistics run over the active elements only
     (count clamped at 1; the variance in two passes, as the JAX module
-    computes it)."""
+    computes it).  Its affine map runs in the input's dtype, as the JAX
+    module applies it."""
+
+    def _normalize(self, x, mean, var):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        mean = mean.to(x.dtype).view(shape)
+        return (x - mean) * inv.to(x.dtype).view(shape) + self.bias.to(x.dtype).view(shape)
 
     def forward(self, x, mask, train: bool = False):
         if not train:
@@ -101,7 +141,7 @@ class MaskedBatchNorm(BatchNorm):
 
 class ConvBnAct(nn.Module):
     """Conv2d (no bias) + ``BatchNorm`` + LeakyReLU(0.01); the conv runs in
-    its weight's dtype."""
+    its compute dtype."""
 
     def __init__(self, cin: int, features: int, kernel_size: Sequence[int] = (3, 3),
                  strides: Sequence[int] = (1, 1)):
@@ -114,7 +154,7 @@ class ConvBnAct(nn.Module):
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x, train: bool = False):
-        return leaky_relu(self.BatchNorm_0(self.Conv_0(x.to(self.Conv_0.weight.dtype)), train))
+        return leaky_relu(self.BatchNorm_0(self.Conv_0(x.to(compute_dtype(self.Conv_0))), train))
 
 
 class WNDense(nn.Module):
@@ -151,5 +191,8 @@ def positional_encoding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
 
 
 def resize_bilinear_align_corners(img: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize with align_corners=True of [N, C, H, W] maps."""
+    """Bilinear resize with align_corners=True of [N, C, H, W] maps, in at
+    least f32: the JAX function's f32 interpolation weights promote a
+    half-precision map."""
+    img = img.to(torch.promote_types(img.dtype, torch.float32))
     return F.interpolate(img, size=tuple(out_hw), mode="bilinear", align_corners=True)

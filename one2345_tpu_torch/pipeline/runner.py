@@ -1,4 +1,4 @@
-"""End-to-end single image -> vertex-colored mesh, on one card.
+"""End-to-end single image -> vertex-colored mesh, on one card or a data mesh.
 
 Counterpart of ``one2345_tpu/pipeline/runner.py`` (reference: run.py,
 preprocess -> stage1_run -> stage2_run -> reconstruct, run.py:79-119).
@@ -32,6 +32,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from one2345_tpu_torch.core import meshes
 from one2345_tpu_torch.core.config import PipelineConfig
 from one2345_tpu_torch.core.device import resolve_device
 from one2345_tpu_torch.core.profiling import Timer
@@ -98,14 +99,24 @@ class One2345Pipeline:
     :param use_sam: segment with SAM in ``preprocess`` (else alpha > 0 for
         RGBA, not-near-white for RGB)
     :param device: None -> 'cuda' (raises without CUDA)
+    :param mesh: a ``core.meshes.create_mesh`` mesh with a ``data`` axis over
+        which the diffusion stage shards its view batches.  With
+        ``auto_mesh`` (default) a ``data`` mesh over the process group is
+        made when one with more than one rank exists and its size divides
+        8 (the stage batches, 8 / 56 views x CFG, then split evenly); one
+        process changes nothing.  Every rank runs the unsharded phases
+        (preprocess, elevation, reconstruct) on the same inputs, the JAX
+        runner's replicated placement; rank 0 alone writes the artifacts.
     """
 
     def __init__(self, config: PipelineConfig | None = None, params: dict | None = None,
-                 use_sam: bool = True, device=None):
+                 use_sam: bool = True, device=None, mesh=None, auto_mesh: bool = True):
         self.config = config or PipelineConfig()
         self.device = resolve_device(device)
         self._params = params or {}
         self.use_sam = use_sam
+        self._mesh = mesh
+        self._auto_mesh = auto_mesh
         self._zero123 = None
         self._recon = None
         self._elev = None
@@ -113,13 +124,22 @@ class One2345Pipeline:
         self._safety = None
 
     # lazy stage constructors -------------------------------------------------
+    def _resolve_mesh(self):
+        if self._mesh is None and self._auto_mesh:
+            n = meshes.world_size()
+            # shard only over divisor-of-8 worlds so every batch splits evenly
+            if n > 1 and 8 % n == 0:
+                self._mesh = meshes.create_mesh(("data",))
+        return self._mesh
+
     @property
     def zero123(self):
         if self._zero123 is None:
             from one2345_tpu_torch.diffusion.zero123 import Zero123Stage
 
             self._zero123 = Zero123Stage(
-                self.config.diffusion, self._params.get("zero123"), device=self.device
+                self.config.diffusion, self._params.get("zero123"), device=self.device,
+                mesh=self._resolve_mesh(),
             )
         return self._zero123
 
@@ -276,6 +296,9 @@ class One2345Pipeline:
         _ = self.zero123, self.recon, self.elevation_estimator, self.safety
         if self.use_sam and not run_kwargs.get("skip_preprocess"):
             _ = self.sam
+        if getattr(self.zero123, "mesh", None) is not None:
+            # every rank must issue the sampler's all-gathers in one order
+            max_in_flight = 1
         n = len(images)
         if seeds is None:
             seeds = [self.config.seed + i for i in range(n)]
@@ -311,6 +334,8 @@ class One2345Pipeline:
         """
         cfg = self.config
         timer = Timer(device=self.device)
+        if meshes.rank() != 0:
+            out_dir = None  # rank 0 writes the artifacts
         seeds = phase_seeds(cfg.seed if seed is None else seed)
         noise = noise_fn or {}
         z = self.zero123
@@ -334,9 +359,11 @@ class One2345Pipeline:
         with timer.span("elevation"):
             polar = self.estimate_elevation(s2_v0[0])
 
-        # stage 1b: the second elevation ring (run.py:40-44), on one card
+        # stage 1b: the second elevation ring (run.py:40-44); a mesh that
+        # would pad the 4 views samples both rings
         sel = list(range(8)) if polar <= 75 else list(range(4)) + list(range(8, 12))
-        sample_idx, ring, _ = select_stage1b_plan(polar, 1)
+        sample_idx, ring, _ = select_stage1b_plan(
+            polar, meshes.axis_size(getattr(z, "mesh", None), "data"))
         with timer.span("stage1"):
             s1_second = z.stage1(input_256, seeds["stage1_ring2"], indices=sample_idx,
                                  noise_fn=noise.get("stage1_ring2"))[ring]

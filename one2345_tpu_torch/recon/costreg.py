@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from one2345_tpu_torch.nn.layers import MaskedBatchNorm
+from one2345_tpu_torch.nn.layers import MaskedBatchNorm, compute_dtype
 
 
 def _mask_down(mask: torch.Tensor) -> torch.Tensor:
@@ -49,7 +49,7 @@ class _MConvBnRelu(nn.Module):
 
     def forward(self, x, mask_in, mask_out, train: bool = False):
         x = x * mask_in.to(x.dtype)
-        x = self.Conv_0(x.to(self.Conv_0.weight.dtype))
+        x = self.Conv_0(x.to(compute_dtype(self.Conv_0)))
         return torch.relu(self.MaskedBatchNorm_0(x, mask_out, train))
 
 
@@ -59,7 +59,7 @@ class _MDeconvBnRelu(_MConvBnRelu):
 
     def forward(self, x, mask_in, mask_out, train: bool = False):
         x = _upsample2x_zero(x * mask_in.to(x.dtype))
-        x = self.Conv_0(x.to(self.Conv_0.weight.dtype))
+        x = self.Conv_0(x.to(compute_dtype(self.Conv_0)))
         return torch.relu(self.MaskedBatchNorm_0(x, mask_out, train))
 
 

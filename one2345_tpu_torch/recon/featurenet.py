@@ -15,11 +15,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from one2345_tpu_torch.nn.layers import ConvBnAct, resize_bilinear_align_corners
+from one2345_tpu_torch.nn.layers import ConvBnAct, compute_dtype, resize_bilinear_align_corners
 
 
 def _conv(m: nn.Conv2d, x):
-    return m(x.to(m.weight.dtype))
+    return m(x.to(compute_dtype(m)))
 
 
 class FeatureNet(nn.Module):
@@ -63,7 +63,8 @@ class PyramidFeatureFusion(nn.Module):
         self.fpn = FeatureNet()
 
     def forward(self, images: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """[V, H, W, 3] -> [V, H, W, 56] in the convs' dtype; ``train``
+        """[V, H, W, 3] -> [V, H, W, 56], at least f32 (the upsampled levels
+        interpolate in f32, as the JAX module's promote); ``train``
         normalises with batch statistics over the V views."""
         feats = self.fpn(images.permute(0, 3, 1, 2), train)
         H, W = images.shape[1], images.shape[2]

@@ -41,6 +41,7 @@ from one2345_tpu_torch.core.device import resolve_device
 from one2345_tpu_torch.geometry.projection import project_points
 from one2345_tpu_torch.geometry.sampling import bilinear_sample
 from one2345_tpu_torch.nn.init import flax_init_
+from one2345_tpu_torch.nn.layers import set_compute_dtype
 from one2345_tpu_torch.recon import mesh_extract
 from one2345_tpu_torch.recon.fast_renderer import extract_depth_maps
 from one2345_tpu_torch.recon.featurenet import PyramidFeatureFusion
@@ -89,10 +90,14 @@ class ReconStage:
         flax's initialisers (``nn.init.flax_init_``), each SDF MLP
         geometrically (a sphere)
     :param device: None -> 'cuda' (raises without CUDA)
+    :param f32_weights: with a bf16 config, keep every weight f32 and run
+        the bf16 layers on their casts at use (training: flax's
+        ``dtype=bfloat16`` over ``param_dtype`` f32); False casts those
+        weights to bf16 once (inference)
     """
 
     def __init__(self, config: ReconConfig | None = None, params=None, seed: int = 0,
-                 device=None):
+                 device=None, f32_weights: bool = False):
         self.config = cfg = config or ReconConfig()
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -147,12 +152,17 @@ class ReconStage:
                 module.load_state_dict(params[name], strict=True)
             module.requires_grad_(False).eval()
         # the conv feature paths and the blending nets in the stage dtype;
-        # the norms' statistics and the SDF MLPs stay f32
+        # the norms' statistics and the SDF MLPs stay f32.  With
+        # ``f32_weights`` the weights stay f32 and are cast at each use
+        self.f32_weights = f32_weights
         for name, module in self.modules().items():
             if name.startswith("variance"):
                 continue
             parts = (module.compress, module.costreg) if name.startswith("sdf") else (module,)
             for part in parts:
+                if f32_weights and self.dtype != torch.float32:
+                    set_compute_dtype(part, self.dtype)
+                    continue
                 for m in part.modules():
                     if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)):
                         m.to(self.dtype)

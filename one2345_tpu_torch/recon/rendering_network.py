@@ -4,7 +4,7 @@ Counterpart of ``one2345_tpu/recon/rendering_network.py`` (reference:
 reconstruction/models/rendering_network.py:26-129): per-sample features of
 every source view are blended by a masked softmax, with anti-alias pooling
 weights from the ray-direction dot products.  The linears run in their
-weights' dtype (the stage's), the pooling weights in f32, as the JAX module
+compute dtype (the stage's), the pooling weights in f32, as the JAX module
 promotes them.  Kaiming-normal init, as the reference's ``weights_init``.
 """
 
@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from one2345_tpu_torch.nn.layers import compute_dtype
 
 
 def _linear(cin: int, cout: int) -> nn.Linear:
@@ -44,7 +46,7 @@ class GeneralRenderingNetwork(nn.Module):
 
     @staticmethod
     def _fc(lin: nn.Linear, x):
-        return lin(x.to(lin.weight.dtype))
+        return lin(x.to(compute_dtype(lin)))
 
     def forward(self, geometry_feat, rgb_feat, ray_diff, mask):
         """
@@ -55,7 +57,7 @@ class GeneralRenderingNetwork(nn.Module):
         :return: (rgb [n_rays, n_samples, 3], valid_mask [n_rays, 1] bool)
         """
         fc = self._fc
-        dt = self.base_fc0.weight.dtype
+        dt = compute_dtype(self.base_fc0)
         # -> [n_rays, n_samples, n_views, *]
         rgb_feat = torch.movedim(rgb_feat, 0, 2)
         ray_diff = torch.movedim(ray_diff, 0, 2)

@@ -1,4 +1,4 @@
-"""Generalizable-SparseNeuS reconstruction trainer, one scene per step.
+"""Generalizable-SparseNeuS reconstruction trainer, one scene per step and card.
 
 Counterpart of ``one2345_tpu/training/recon_trainer.py`` (reference:
 exp_runner_generic_blender_train.py and GenericTrainer.train_step /
@@ -17,12 +17,21 @@ cal_losses_sdf, trainer_generic.py:158-357, 1127-1269):
   eps 1e-8) at the cosine rate with a 0.1 floor, read at the step count
   before the update, as optax reads its schedule.
 
-The trainer trains the stage's own modules in place: an f32 stage
-(``ReconConfig(dtype='float32')``), unfrozen here.  ``make_sharded_train_step``
-(scenes over several cards) is not ported.  Random draws (the stratified
-jitter, the normal-query mix, the sparsity points; ``DRAWS``, with a
-``_lod1`` suffix for the fine lod) come from the trainer's
-``torch.Generator`` unless the caller gives them.
+The trainer trains the stage's own modules in place, unfrozen here: an f32
+stage, or a bf16 one built with ``f32_weights=True``.  bf16 training is
+flax's ``dtype=bfloat16`` over f32 parameters: the FPN and its fusion, the
+``compress`` conv, CostRegNet and the blending nets compute in bf16 over
+f32 weights cast at use; the SDF MLPs and the variance nets stay f32, as
+do the gradients, the Adam state and the running statistics (the batch
+statistics reduce in f32).  Random draws (the stratified jitter, the
+normal-query mix, the sparsity points; ``DRAWS``, with a ``_lod1`` suffix
+for the fine lod) come from the trainer's ``torch.Generator`` unless the
+caller gives them.
+
+Several cards: ``make_sharded_train_step`` trains one scene per ``data``
+rank, the JAX step's vmap over its scenes: the gradients are averaged
+over the ranks before the clip and Adam, and the running statistics after
+the step are the mean of the ranks' (the JAX step's ``stats.mean(axis=0)``).
 """
 
 from __future__ import annotations
@@ -48,8 +57,9 @@ def cosine_lr(base_lr: float, end_iter: int):
 
 
 class ReconTrainer:
-    """:param stage: ``recon.pipeline.ReconStage`` in f32 (its modules are
-        trained in place; with ``num_lods=2`` it must hold every lod1 module)
+    """:param stage: ``recon.pipeline.ReconStage`` in f32, or in bf16 with
+        ``f32_weights=True`` (its modules are trained in place; with
+        ``num_lods=2`` it must hold every lod1 module)
     :param config: the training config (defaults to the stage's)
     :param seed: seed of the trainer's generator
     """
@@ -57,10 +67,12 @@ class ReconTrainer:
     def __init__(self, stage, config=None, seed: int = 0):
         self.stage = stage
         self.cfg = cfg = config or stage.config
-        if stage.dtype != torch.float32 or cfg.dtype != "float32":
+        if stage.dtype != (torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32):
+            raise ValueError(f"config dtype {cfg.dtype!r}, stage in {stage.dtype}")
+        if stage.dtype != torch.float32 and not stage.f32_weights:
             raise ValueError(
-                "ReconTrainer trains f32 modules: build the stage and the config with "
-                "dtype='float32' (bf16 training is not ported)"
+                "ReconTrainer trains f32 weights: build a bf16 stage with f32_weights=True "
+                "(bf16 compute over f32 weights), not the inference stage's bf16 weights"
             )
         self.device = stage.device
         self.modules = stage.modules()
@@ -276,14 +288,72 @@ class ReconTrainer:
         self.optimizer_step()
         return metrics
 
-    def optimizer_step(self) -> None:
-        """The update from the gradients on the parameters: clip to global
-        norm 1.0, Adam at the cosine rate of the current step; the step
-        count advances."""
+    def scene_draws(self, n_rays: int) -> dict:
+        """One scene's draws from the trainer's generator, in the order and
+        with the values a ``scene_loss`` without draws makes them."""
+        cfg, g, dev = self.cfg, self.generator, self.device
+        fix0 = cfg.num_lods > 1 and cfg.fix_lod0_networks
+        out = {}
+        for lod in range(cfg.num_lods):
+            if lod == 0 and fix0:
+                continue
+            sfx = "" if lod == 0 else "_lod1"
+            out["pts_random" + sfx] = torch.rand((1024, 3), generator=g, device=dev,
+                                                 dtype=self.dtype) * 2.0 - 1.0
+            out["t_rand" + sfx] = torch.rand((n_rays, cfg.n_samples), generator=g, device=dev)
+            if cfg.normal_query_prob > 0.0:
+                out["normal_query" + sfx] = (torch.rand((n_rays,), generator=g, device=dev)
+                                             < cfg.normal_query_prob)
+        return out
+
+    def make_sharded_train_step(self, mesh):
+        """The train step over a ``core.meshes.create_mesh`` mesh, one scene
+        per ``data`` rank (the DataParallel equivalent, JAX
+        ``make_sharded_train_step``): every rank draws the draws of all the
+        step's scenes from its generator, in scene order, and keeps its own
+        (the same generator on every rank), unless the caller gives this
+        rank's; after the backward the gradients and the updated running
+        statistics are averaged over the ranks, then the clip and Adam run
+        on every rank alike.
+
+        Returns ``step(scene, draws=None)`` on this rank's scene, which
+        returns the metrics averaged over the step's scenes.
+        """
+        from one2345_tpu_torch.core.meshes import all_reduce_mean, axis_rank, axis_size
+
+        n, r = axis_size(mesh, "data"), axis_rank(mesh, "data")
+        group = mesh.get_group("data")
+        stats = [b for m in self.modules.values() for name, b in m.named_buffers()
+                 if name.endswith(("running_mean", "running_var"))]
+
+        def step(scene, draws=None) -> dict:
+            if draws is None:
+                n_rays = len(scene["rays_o"])
+                draws = [self.scene_draws(n_rays) for _ in range(n)][r]
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = self.scene_loss(scene, self.step, draws)
+            loss.backward()
+            self._fill_grads()
+            all_reduce_mean([p.grad for p in self._params] + stats, group=group)
+            names = sorted(metrics)
+            values = torch.stack([metrics[k].to(torch.float32) for k in names])
+            all_reduce_mean([values], group=group)
+            self.optimizer_step()
+            return dict(zip(names, values.unbind()))
+
+        return step
+
+    def _fill_grads(self) -> None:
         for p in self._params:
             # unread (a frozen lod0): zeros, as jax.grad gives them
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+
+    def optimizer_step(self) -> None:
+        """The update from the gradients on the parameters: clip to global
+        norm 1.0, Adam at the cosine rate of the current step; the step
+        count advances."""
+        self._fill_grads()
         grads = [p.grad for p in self._params]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_div_(grads, torch.where(norm < 1.0, torch.ones_like(norm), norm))

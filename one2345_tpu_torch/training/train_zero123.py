@@ -19,8 +19,14 @@ a checkpoint every 5000 steps, EMA) through ``Zero123Trainer.train_step``.
   and at the end) and EMA sample grids ``samples/step_XXXXXX.png`` under
   ``--exp_dir``.
 
-One card: ``--model_shards`` other than 1 (the JAX trainer's sharded
-parameters over a device mesh) is refused.
+Several cards: run under ``torchrun --nproc_per_node N``.  The ranks form
+a ``(N // model_shards, model_shards)`` mesh (``core/meshes.py``), as the
+JAX CLI's: each reads the global batch and trains on its rows, and with
+``--model_shards`` > 1 the trainable weights, their AdamW state and the
+EMA are sharded over ``model`` (FSDP2).  Rank 0 writes the metrics, the
+sample grids and the checkpoints, which hold the whole weights, so a
+sharded run's file loads in a one-card run and the reverse.  A world of one
+refuses ``--model_shards`` 2 (``create_mesh``'s ``ValueError``).
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ def build_parser():
     p.add_argument("--init_params", type=str, default=None,
                    help="a core/checkpoint.py file of the Zero123 stage's state dicts")
     p.add_argument("--model_shards", type=int, default=1,
-                   help="parameter sharding factor; only 1 (one card) is ported")
+                   help="FSDP-style parameter sharding factor (ranks on the 'model' axis)")
     p.add_argument("--total_views", type=int, default=12)
     return p
 
@@ -63,19 +69,20 @@ def build_config():
 
 
 def log_samples(stage, trainer, sample_batch, out_path: str, steps: int, seed: int,
-                noise_fn=None) -> str:
+                noise_fn=None, ema=None) -> str:
     """EMA sample grid, the Lightning ImageLogger's role (yaml:96-111):
     rows (conditioning image, sampled view, target), one column per sample.
 
     DDIM over ``steps`` with the trainer's EMA UNet and CCProjection at
     ``stage.config.cfg_scale``, conditioned on the batch's own pose tokens;
     the stage's and the trainer's weights are left as they were.
-    ``noise_fn`` replaces the per-view noise, as in ``sample_views``."""
+    ``noise_fn`` replaces the per-view noise, as in ``sample_views``;
+    ``ema`` gives ``trainer.ema_weights()`` when the caller gathered them
+    (a sharded trainer gathers on every rank)."""
     from one2345_tpu_torch.utils.image import image_grid
     from one2345_tpu_torch.utils.png import write_png
 
-    ema = {name: {**module.state_dict(), **trainer.ema[name]}
-           for name, module in trainer.modules.items()}
+    ema = trainer.ema_weights() if ema is None else ema
     with stage.swapped_weights(ema):
         samples = stage.sample_tokens(sample_batch["image_cond"], sample_batch["T"], seed,
                                       steps=steps, cfg_scale=stage.config.cfg_scale,
@@ -102,25 +109,36 @@ def dataset(data_root: str, image_size: int, total_views: int):
 
 
 def main(argv=None, device=None):
-    """Train; ``device`` None -> the card (raises without CUDA).  Returns
-    the trainer."""
+    """Train; ``device`` None -> the card (raises without CUDA).  Under
+    ``torchrun`` (or in a process group the caller started) the ranks train
+    on a ``(world // model_shards, model_shards)`` mesh.  Returns the
+    trainer."""
     args = build_parser().parse_args(argv)
-    if args.model_shards != 1:
-        raise SystemExit(
-            f"--model_shards {args.model_shards}: the port trains on one card; sharding the "
-            "parameters over several cards is not ported (use --model_shards 1)"
-        )
 
+    from one2345_tpu_torch.core import meshes
+
+    with meshes.process_group(device) as dev:
+        return _train(args, dev)
+
+
+def _train(args, dev):
     from dataclasses import replace
 
-    from one2345_tpu_torch.core import checkpoint
-    from one2345_tpu_torch.core.device import resolve_device
+    import torch.distributed as dist
+
+    from one2345_tpu_torch.core import checkpoint, meshes
     from one2345_tpu_torch.core.logging import MetricsLogger
     from one2345_tpu_torch.diffusion.zero123 import MODULES, Zero123Stage
     from one2345_tpu_torch.training.data import Prefetcher
     from one2345_tpu_torch.training.zero123_trainer import Zero123Trainer
 
-    dev = resolve_device(device)
+    mesh = None
+    if dist.is_initialized() or args.model_shards != 1:
+        # a world of one refuses --model_shards 2 here, as the JAX CLI's mesh
+        world = meshes.world_size()
+        mesh = meshes.create_mesh(("data", "model"),
+                                  (world // args.model_shards, args.model_shards))
+    main_rank = meshes.rank() == 0
     cfg = build_config()
     if args.init_params:
         params = checkpoint.restore(args.init_params)
@@ -133,10 +151,13 @@ def main(argv=None, device=None):
     trainer = Zero123Trainer(stage, {k: params[k] for k in ("unet", "cc_projection")},
                              base_lr=args.base_lr, device=dev)
     del params
+    step_fn = (trainer.train_step if mesh is None
+               else trainer.make_sharded_train_step(mesh, shard_params=args.model_shards > 1))
 
+    # every rank reads the global batch (the same seeded stream) and keeps its rows
     ds = dataset(args.data_root, cfg.image_size, args.total_views)
     batches = Prefetcher(ds.batches(args.batch_size))
-    logger = MetricsLogger(args.exp_dir)
+    logger = MetricsLogger(args.exp_dir) if main_rank else None
     sample_batch = None
     t0 = time.time()
     try:
@@ -145,25 +166,37 @@ def main(argv=None, device=None):
             if sample_batch is None and args.sample_every:
                 os.makedirs(f"{args.exp_dir}/samples", exist_ok=True)
                 sample_batch = {k: v[:args.sample_views] for k, v in batch.items()}
-            loss = trainer.train_step(batch)
+            loss = step_fn(batch)
             if args.sample_every and step_idx > 0 and step_idx % args.sample_every == 0:
-                path = log_samples(stage, trainer, sample_batch,
-                                   f"{args.exp_dir}/samples/step_{step_idx:06d}.png",
-                                   args.sample_steps, step_idx)
-                print(f"sample grid -> {path}", flush=True)
-            if step_idx % args.log_every == 0:
+                ema = trainer.ema_weights()
+                if main_rank:
+                    path = log_samples(stage, trainer, sample_batch,
+                                       f"{args.exp_dir}/samples/step_{step_idx:06d}.png",
+                                       args.sample_steps, step_idx, ema=ema)
+                    print(f"sample grid -> {path}", flush=True)
+            if step_idx % args.log_every == 0 and main_rank:
                 loss = float(loss)
                 rate = args.log_every * args.batch_size / max(time.time() - t0, 1e-9)
                 logger.log(step_idx, loss=loss, samples_per_sec=rate)
                 print(f"step {step_idx} loss {loss:.4f} ({rate:.1f} samples/s)", flush=True)
                 t0 = time.time()
             if step_idx > 0 and step_idx % args.ckpt_every == 0:
-                checkpoint.save(f"{args.exp_dir}/step_{step_idx:06d}", trainer.state_dicts())
-        checkpoint.save(f"{args.exp_dir}/step_{args.max_steps:06d}", trainer.state_dicts())
+                _save(f"{args.exp_dir}/step_{step_idx:06d}", trainer, main_rank)
+        _save(f"{args.exp_dir}/step_{args.max_steps:06d}", trainer, main_rank)
     finally:
         batches.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer
+
+
+def _save(path: str, trainer, main_rank: bool) -> None:
+    """The whole trainable weights (gathered on every rank), written by rank 0."""
+    from one2345_tpu_torch.core import checkpoint
+
+    state = trainer.state_dicts()
+    if main_rank:
+        checkpoint.save(path, state)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,10 @@ Random draws (timesteps, noise, the posterior's normal draw, the dropout
 uniforms) come from the trainer's ``torch.Generator`` unless the caller
 injects them (``draws``), as the samplers take ``noise_fn``; the tests feed
 the JAX draws through it.
+
+Several cards: ``make_sharded_train_step`` shards the batch over the mesh's
+``data`` axis and (FSDP2) the trainable weights, their AdamW state and the
+EMA over its ``model`` axis, as the JAX trainer's ``make_sharded_train_step``.
 """
 
 from __future__ import annotations
@@ -103,6 +107,7 @@ class Zero123Trainer:
             sched["sqrt_one_minus_alphas_cumprod"], device=self.device
         )
         self.ema_decay = ema_decay
+        self.base_lr = base_lr
         self.optimizer, self.scheduler = make_optimizer(self.unet, self.cc_projection, base_lr)
         self.ema = {
             name: {k: p.detach().clone() for k, p in m.named_parameters()}
@@ -111,10 +116,7 @@ class Zero123Trainer:
         self._ema_list = [t for d in self.ema.values() for t in d.values()]
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-
-    def state_dicts(self) -> dict:
-        """The trainable weights, keyed as ``params``."""
-        return {name: m.state_dict() for name, m in self.modules.items()}
+        self._grad_sync = None  # the gradients' all-reduce of a sharded step
 
     def _draws(self, B: int, latent_shape, draws) -> dict:
         """The step's random draws: injected ones as given, the rest from
@@ -195,6 +197,8 @@ class Zero123Trainer:
             # jax.grad gives them zeros, and optax still decays them
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self._grad_sync is not None:
+            self._grad_sync()
         self.optimizer.step()
         self.scheduler.step()
         n = self.step + 1
@@ -204,3 +208,83 @@ class Zero123Trainer:
             torch._foreach_add_(self._ema_list, self._params, alpha=1.0 - decay)
         self.step = n
         return loss.detach()
+
+    # ------------------------------------------------------------- sharding
+    def make_sharded_train_step(self, mesh, shard_params: bool = True):
+        """The train step over a ``core.meshes.create_mesh`` mesh: each rank
+        takes its rows of the global batch (``data``), and the gradients are
+        the mean over the global batch, as JAX's ``jnp.mean`` over a
+        ``data``-sharded batch gives them.
+
+        With ``shard_params`` (the mesh needs a ``model`` axis) the UNet and
+        CCProjection are ``fully_shard``ed (FSDP2) over ``model`` and
+        replicated over ``data`` (HSDP on the (data, model) mesh): their
+        parameters, AdamW state and EMA are DTensors holding this rank's
+        shard, gathered for the forward and backward, and the gradients are
+        reduce-scattered.  Without it the parameters stay whole on every
+        rank and the gradients are all-reduced.  The frozen VAE encoder and
+        CLIP tower are replicated either way.  The step's random draws are
+        drawn for the global batch (or given for it) and sharded with it, so
+        a sharded step equals the one-card step at the same seed.
+
+        Shards a trainer before its first step.  Returns ``step(batch,
+        draws=None)`` on the global batch and draws (as ``train_step``
+        takes them), which returns the global batch's loss.
+        """
+        from one2345_tpu_torch.core.meshes import all_reduce_mean, shard_batch
+
+        if self.step:
+            raise ValueError("make_sharded_train_step shards a trainer before its first step")
+        if shard_params:
+            from torch.distributed.fsdp import fully_shard
+
+            if "model" not in (mesh.mesh_dim_names or ()):
+                raise ValueError("shard_params needs a mesh with a 'model' axis")
+            hsdp = mesh["data", "model"] if "data" in mesh.mesh_dim_names else mesh["model"]
+            for m in self.modules.values():
+                fully_shard(m, mesh=hsdp)
+            self._params = [p for m in self.modules.values() for p in m.parameters()]
+            self.optimizer, self.scheduler = make_optimizer(
+                self.unet, self.cc_projection, self.base_lr)
+            self.ema = {
+                name: {k: p.detach().clone() for k, p in m.named_parameters()}
+                for name, m in self.modules.items()
+            }
+            self._ema_list = [t for d in self.ema.values() for t in d.values()]
+        else:
+            def sync():
+                all_reduce_mean([p.grad for p in self._params])
+
+            self._grad_sync = sync
+        cfg = self.stage.config
+
+        def step(batch, draws=None) -> torch.Tensor:
+            B = len(batch["T"])
+            d = self._draws(B, (B, cfg.latent_size, cfg.latent_size, cfg.vae.z_channels), draws)
+            local = shard_batch(mesh, {k: batch[k] for k in ("image_target", "image_cond", "T")})
+            loss = self.train_step(local, shard_batch(mesh, d)).reshape(1).clone()
+            all_reduce_mean([loss])  # the ranks of a model group hold equal losses
+            return loss[0]
+
+        return step
+
+    def state_dicts(self) -> dict:
+        """The trainable weights, keyed as ``params``, whole (a sharded
+        trainer gathers them: every rank must call)."""
+        return {name: {k: _whole(v) for k, v in m.state_dict().items()}
+                for name, m in self.modules.items()}
+
+    def ema_weights(self) -> dict:
+        """The trainable modules' state dicts with the EMA in place of their
+        parameters, whole (every rank must call)."""
+        ema = self.ema_state_dicts()
+        return {name: {**sd, **ema[name]} for name, sd in self.state_dicts().items()}
+
+    def ema_state_dicts(self) -> dict:
+        """The EMA weights, keyed as ``params``, whole (every rank must call)."""
+        return {name: {k: _whole(v) for k, v in d.items()} for name, d in self.ema.items()}
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered to the whole tensor; a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t

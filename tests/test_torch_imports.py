@@ -43,6 +43,7 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.training.data",
         "one2345_tpu_torch.training.zero123_trainer",
         "one2345_tpu_torch.core.device",
+        "one2345_tpu_torch.core.meshes",
         "one2345_tpu_torch.elevation.loftr",
         "one2345_tpu_torch.elevation.solver",
         "one2345_tpu_torch.pipeline.runner",

@@ -185,7 +185,7 @@ def test_validator_matches_jax(lod):
 
 def test_train_recon_main_runs_and_resumes(scenes, tmp_path, monkeypatch):
     """Two steps, a checkpoint, the final checkpoint, metrics for every
-    step; then --resume continues at the saved step.  ReconConfig is cut
+    step; then --resume continues at the saved step; a bf16 step runs.  ReconConfig is cut
     to an 8^3 volume and 4 + 4 samples (the CLI builds it from its flags;
     its other fields stay the defaults)."""
     tiny = functools.partial(port_config.ReconConfig, vol_dims=(8, 8, 8), voxel_size=2.0 / 7.0,
@@ -210,5 +210,11 @@ def test_train_recon_main_runs_and_resumes(scenes, tmp_path, monkeypatch):
     for r in recs:
         assert all(np.isfinite(v) for k, v in r.items() if k != "time")
         assert {"loss", "eikonal", "sparse_loss", "psnr"} <= set(r)
-    with pytest.raises(ValueError, match="bf16 training is not ported"):
-        train_recon.main(args + ["--max_steps", "1", "--dtype", "bfloat16"], device="cpu")
+    # --dtype bfloat16 trains: bf16 compute over f32 weights, Adam state and statistics
+    bf = train_recon.main(args + ["--max_steps", "1", "--dtype", "bfloat16",
+                                  "--exp_dir", str(tmp_path / "bf16")], device="cpu")
+    assert bf.step == 1 and bf.stage.dtype == torch.bfloat16 and bf.stage.f32_weights
+    assert all(t.dtype == torch.float32 for m in bf.modules.values() for t in m.state_dict().values())
+    with open(tmp_path / "bf16" / "metrics.jsonl") as f:
+        rec = json.loads(f.readline())
+    assert all(np.isfinite(v) for k, v in rec.items() if k != "time")

@@ -335,5 +335,8 @@ def test_main_seeds_its_weights_without_init_params(tmp_path, tiny_main):
 
 
 def test_main_refuses_model_shards(tmp_path):
-    with pytest.raises(SystemExit, match="one card"):
+    """A world of one refuses --model_shards 2 through create_mesh's
+    ValueError, as the JAX CLI's mesh does (the 4-rank run is in
+    tests/test_torch_meshes.py)."""
+    with pytest.raises(ValueError, match=r"mesh \(0, 2\) != 1 devices"):
         train_zero123.main(["--data_root", str(tmp_path), "--model_shards", "2"], device="cpu")
