@@ -48,7 +48,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
    field at 64^3), and the bf16 field's signs against the f32 one's;
 9. pipeline: the port's own entry point, One2345Pipeline(PipelineConfig())
    .run(skip_preprocess=True, output_format=".obj") on the weights of
-   phases 6 to 8, cold and warm: seconds per span of the runner, the
+   phases 6 to 8, once (phase 6 holds warm sampling against cold): seconds
+   per span of the runner, the
    estimated elevation and the second ring it picked, 4000 K1 launches, the
    mesh checks of phase 8, every artifact (8 + 32 PNGs, pose.json,
    mesh.ply, mesh.obj) written (one PNG read back) and then removed;
@@ -139,6 +140,28 @@ Phases, one line each; any failure exits non-zero and prints no result:
    full width in memory; cli.main --sampler dpmpp --params on that file
    (1792 K1 launches): the same stage images and mesh as phase 12's
    --sampler dpmpp run on the in-memory tree; seconds and bytes per file;
+   the reference-format files stay for phase 24;
+24. (after 18, its parts between 18 and 21, in 22 and after 23) surface:
+   (a) examples/torch_validate_real_weights.py --skip_download on phase
+   18's four files at torch's TF32 defaults: the conversion and its
+   manifest, the golden DDIM run (4000 K1), the eval sweep skipped, the
+   fast-mode A/B (dpmpp and dpmpp + int8: 1792 K1 each, one int8 GEMM per
+   QConv2d and eval) with "weights": "converted" in fast_mode_ab.json;
+   the same arguments with --dry_run skip the conversion by the manifest;
+   (b) the CLI as a torchrun world of one over NCCL (python -m
+   torch.distributed.run --nproc_per_node 1) with --params the converted
+   file and --sampler dpmpp, ONE2345_COMPILE_CACHE a fresh directory
+   holding copies of phase 2's libraries: it prints that directory, builds
+   nothing there or in the checkout's, and its artifacts equal the A/B's
+   dpmpp run byte for byte; (c) in phase 22's spawned world, after phase
+   22's work: cli.main --sampler dpmpp --params on both gloo ranks (1792
+   K1 on each, rank 0 alone writes), held to a one-card run that samples
+   each batch in the ranks' two halves, then server.serve on both ranks
+   (rank 0 on loopback, rank 1 following) with /preprocess,
+   /estimate_elevation and /generate_mesh from a client thread (the mesh
+   read back), stopped by SIGINT; (d) examples/torch_walkthrough.py and
+   examples/torch_demo.py with --params on the card (4000 K1 each, their
+   artifacts read back); seconds per part;
 21. (after 18, before 19) multicard: the multi-card paths in a world of one
    over NCCL (tcp://localhost): (a) the sharded Zero123 step
    (make_sharded_train_step, FSDP2) at DiffusionConfig(), B=8, on a
@@ -168,8 +191,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    and 64, forward B = 8 / 12 / 56, backward B = 4 / 8 / 16); pipeline
    wiring tier A at 256^2 (polar 75 and 105, the flipped-azimuth control
    at 75); recon_quality, diffusion_quality (its tiny stage in bf16) and
-   generative_e2e at the JAX tests' CI configurations with their gates,
-   each run's metrics on a line; the examples' K1, dq and dkv launches;
+   generative_e2e at the JAX tests' CI configurations with their gates
+   (recon_quality and generative_e2e in a spawned second process while
+   this one runs the others: each twin is host-bound on one core), each
+   run's metrics on a line; the examples' K1, dq and dkv launches;
    ElevationEstimator.save_match_visualizations on phase 7's warm views,
    the six PNGs read back; seconds per part;
 20. device times: each kernel's device time per launch (torch.profiler) at
@@ -188,16 +213,18 @@ Phases, one line each; any failure exits non-zero and prints no result:
 
 Then the kernels' JSON line (K1's launches are those of the CLI run, the
 main path from a raw image; `launches_sharded` counts phase 21's sharded
-steps and, for K1, its sharded sampler), the nvidia-smi line, and the
-result line.
+steps and, for K1, its sharded sampler and phase 24's two ranks), the
+nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout (the pipeline's and
 the CLI's files go to _smoke_out/, removed at the end of phases 9, 11 and
-12; the training scene, the finetune, Zero123 and eval data and runs to
-_smoke_scenes/, removed after phase 23).
+12; the training scene, the finetune, Zero123 and eval data and runs, the
+reference-format files and phase 24's runs to _smoke_scenes/, removed
+after phase 24).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -398,6 +425,18 @@ def fail(msg: str):
     sys.exit(1)
 
 
+PHASE_SECONDS: dict[str, float] = {}  # wall seconds of each phase, in order
+
+
+def timed(name: str, phase, *args):
+    """``phase(*args)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     import torch
 
@@ -539,6 +578,9 @@ def input_image(size: int = 256, seed: int = 0):
     return img
 
 
+TORCH_TF32_DEFAULTS = {}  # torch's TF32 flags before phase_device turns them off
+
+
 def phase_device():
     import torch
 
@@ -559,7 +601,10 @@ def phase_device():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     exp_rate = EXP2_PER_CLOCK_PER_SM * sms * sm_mhz * 1e6
     # fp32 matmuls and cuDNN convs in full f32 (cuDNN defaults to TF32):
-    # the plain versions here are references
+    # the plain versions here are references; phase 24 runs the entry
+    # points at torch's own defaults, as a user's process has them
+    TORCH_TF32_DEFAULTS.update(matmul=torch.backends.cuda.matmul.allow_tf32,
+                               cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(
@@ -1215,10 +1260,10 @@ def phase_elevation(views, smi):
 
 def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
     """One2345Pipeline(PipelineConfig()).run at full width on one card, with
-    the seeded weights of phases 6 to 8, cold and warm: seconds per span,
-    the elevation and the ring it picked, K1 launches, the mesh, the
-    artifacts (read back), peak memory.  Returns the warm run's mesh (for
-    the eval phase)."""
+    the seeded weights of phases 6 to 8, once (cold; phase 6 holds warm
+    sampling against cold, bit for bit): seconds per span, the elevation
+    and the ring it picked, K1 launches, the mesh, the artifacts (read
+    back), peak memory.  Returns the mesh (for the eval phase)."""
     import shutil
 
     import numpy as np
@@ -1239,76 +1284,66 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
         f"{time.perf_counter() - t0:.1f} s")
     image = input_image()
     expected = 16 * (76 + 49 + 76 + 49)
-    runs = {}
     try:
-        for run in ("cold", "warm"):
-            out_dir = os.path.join(PIPELINE_OUT, run)
-            torch.cuda.reset_peak_memory_stats()
-            flash_attention.launch_count = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = pipe.run(image, out_dir=out_dir, skip_preprocess=True, seed=0,
-                           output_format=".obj")
-            torch.cuda.synchronize()
-            total = time.perf_counter() - t0
-            launches = flash_attention.launch_count
-            if launches != expected:
-                fail(f"pipeline {run}: flash_attention launched {launches} times, expected "
-                     f"{expected}")
-            if tuple(res.timings) != PIPELINE_SPANS:
-                fail(f"pipeline {run}: spans {tuple(res.timings)}, expected {PIPELINE_SPANS}")
-            for name, imgs in (("stage1", res.stage1_images), ("stage2", res.stage2_images)):
-                if not torch.isfinite(imgs).all() or imgs.min() < 0 or imgs.max() > 1:
-                    fail(f"pipeline {run}: {name} images not finite in [0, 1]")
-            check_mesh(f"pipeline {run}", {"vertices": res.vertices, "faces": res.faces,
-                                           "colors": res.colors})
-            polar = 90.0 - res.elevation
-            sel = list(range(8)) if polar <= 75 else [0, 1, 2, 3, 8, 9, 10, 11]
-            want = {f"stage1_8/{i}.png" for i in sel}
-            want |= {f"stage2_8/{i}_{j}.png" for i in sel for j in range(4)}
-            want |= {"pose.json", "mesh.ply", "mesh.obj"}
-            have = {
-                os.path.relpath(os.path.join(d, f), out_dir)
-                for d, _, files in os.walk(out_dir) for f in files
-            }
-            if have != want or res.mesh_path != os.path.join(out_dir, "mesh.obj"):
-                fail(f"pipeline {run}: artifacts {sorted(have ^ want)} differ from the expected "
-                     f"{len(want)}, mesh path {res.mesh_path}")
-            k = 5
-            png = read_png(os.path.join(out_dir, "stage1_8", f"{sel[k]}.png"))
-            ref = (res.stage1_images[k].cpu().numpy() * 255).astype(np.uint8)
-            if not np.array_equal(png, ref):
-                fail(f"pipeline {run}: stage1_8/{sel[k]}.png does not read back as its image")
-            runs[run] = res
-            log(
-                f"phase pipeline ({run}): " + ", ".join(
-                    f"{k} {v:.4f} s" for k, v in res.timings.items())
-                + f", total {total:.4f} s | elevation {res.elevation} (polar {polar}), second "
-                f"ring {sel[4:]} | flash_attention launches {launches} (expected {expected}) | "
-                f"{len(res.vertices)} vertices, {len(res.faces)} faces | {len(have)} artifacts "
-                f"({len(sel)} stage-1 PNGs, {4 * len(sel)} stage-2 PNGs, pose.json, mesh.ply, "
-                f"mesh.obj), stage1_8/{sel[k]}.png read back equal | peak mem "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}"
-            )
-        # the warm run's scene, as train_recon reads it, for phase 14
+        run = "cold"  # one run: phase 6 holds warm against cold
+        out_dir = os.path.join(PIPELINE_OUT, run)
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launch_count = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe.run(image, out_dir=out_dir, skip_preprocess=True, seed=0,
+                       output_format=".obj")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = flash_attention.launch_count
+        if launches != expected:
+            fail(f"pipeline {run}: flash_attention launched {launches} times, expected "
+                 f"{expected}")
+        if tuple(res.timings) != PIPELINE_SPANS:
+            fail(f"pipeline {run}: spans {tuple(res.timings)}, expected {PIPELINE_SPANS}")
+        for name, imgs in (("stage1", res.stage1_images), ("stage2", res.stage2_images)):
+            if not torch.isfinite(imgs).all() or imgs.min() < 0 or imgs.max() > 1:
+                fail(f"pipeline {run}: {name} images not finite in [0, 1]")
+        check_mesh(f"pipeline {run}", {"vertices": res.vertices, "faces": res.faces,
+                                       "colors": res.colors})
+        polar = 90.0 - res.elevation
+        sel = list(range(8)) if polar <= 75 else [0, 1, 2, 3, 8, 9, 10, 11]
+        want = {f"stage1_8/{i}.png" for i in sel}
+        want |= {f"stage2_8/{i}_{j}.png" for i in sel for j in range(4)}
+        want |= {"pose.json", "mesh.ply", "mesh.obj"}
+        have = {
+            os.path.relpath(os.path.join(d, f), out_dir)
+            for d, _, files in os.walk(out_dir) for f in files
+        }
+        if have != want or res.mesh_path != os.path.join(out_dir, "mesh.obj"):
+            fail(f"pipeline {run}: artifacts {sorted(have ^ want)} differ from the expected "
+                 f"{len(want)}, mesh path {res.mesh_path}")
+        k = 5
+        png = read_png(os.path.join(out_dir, "stage1_8", f"{sel[k]}.png"))
+        ref = (res.stage1_images[k].cpu().numpy() * 255).astype(np.uint8)
+        if not np.array_equal(png, ref):
+            fail(f"pipeline {run}: stage1_8/{sel[k]}.png does not read back as its image")
+        log(
+            f"phase pipeline ({run}): " + ", ".join(
+                f"{k} {v:.4f} s" for k, v in res.timings.items())
+            + f", total {total:.4f} s | elevation {res.elevation} (polar {polar}), second "
+            f"ring {sel[4:]} | flash_attention launches {launches} (expected {expected}) | "
+            f"{len(res.vertices)} vertices, {len(res.faces)} faces | {len(have)} artifacts "
+            f"({len(sel)} stage-1 PNGs, {4 * len(sel)} stage-2 PNGs, pose.json, mesh.ply, "
+            f"mesh.obj), stage1_8/{sel[k]}.png read back equal | peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}"
+        )
+        # the run's scene, as train_recon reads it, for phase 14
         shutil.rmtree(SCENES_OUT, ignore_errors=True)
         shape = os.path.join(SCENES_OUT, "data", "shape0")
         os.makedirs(shape)
         for name in ("stage1_8", "stage2_8"):
-            shutil.copytree(os.path.join(PIPELINE_OUT, "warm", name), os.path.join(shape, name))
-        shutil.copy(os.path.join(PIPELINE_OUT, "warm", "pose.json"), shape)
+            shutil.copytree(os.path.join(out_dir, name), os.path.join(shape, name))
+        shutil.copy(os.path.join(out_dir, "pose.json"), shape)
     finally:
         shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
-    cold, warm = runs["cold"], runs["warm"]
-    if warm.elevation != cold.elevation:
-        fail(f"pipeline: warm elevation {warm.elevation}, cold {cold.elevation}")
-    rerun = float((warm.stage2_images - cold.stage2_images).abs().max())
-    log(
-        f"phase pipeline: warm vs cold: the same elevation {warm.elevation}, stage-2 images max "
-        f"abs {rerun:.3e}, {len(warm.vertices)} vs {len(cold.vertices)} vertices; output "
-        f"directory removed"
-    )
-    return {"vertices": warm.vertices, "faces": warm.faces, "colors": warm.colors}
+    log("phase pipeline: output directory removed")
+    return {"vertices": res.vertices, "faces": res.faces, "colors": res.colors}
 
 
 def sam_input(h: int, w: int, seed: int, rgba: bool):
@@ -3706,7 +3741,8 @@ def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
     read back and held against the tree bit for bit; the UNet's EMA remap at
     full width in memory; then cli.main --params on the converted file with
     --sampler dpmpp, held against phase 12's --sampler dpmpp run on the
-    in-memory tree."""
+    in-memory tree.  The reference-format files stay under
+    _smoke_scenes/convert/ckpts/ for phase 24; returns that directory."""
     import shutil
 
     import numpy as np
@@ -3716,7 +3752,8 @@ def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
     from one2345_tpu_torch.utils import convert_weights as cw
 
     root = os.path.join(SCENES_OUT, "convert")
-    os.makedirs(root, exist_ok=True)
+    ckpts = os.path.join(root, "ckpts")
+    os.makedirs(ckpts, exist_ok=True)
     out = os.path.join(root, "params.pt")
     try:
         refs = reference_checkpoints(stages, sam_w)
@@ -3732,7 +3769,7 @@ def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
         del unet, z
         written = {}
         for name, obj in refs.items():
-            path = os.path.join(root, CONVERT_FILES[name])
+            path = os.path.join(ckpts, CONVERT_FILES[name])
             t0 = time.perf_counter()
             torch.save(obj, path)
             written[name] = (path, time.perf_counter() - t0)
@@ -3751,8 +3788,6 @@ def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
         saved = re.search(r"saved .* \((\d+) bytes\) in ([\d.]+) s", res.stdout)
         if sorted(f[0] for f in per_file) != sorted(written) or not saved:
             fail(f"convert: convert_cli printed {res.stdout!r}")
-        for path, _ in written.values():
-            os.remove(path)
         t0 = time.perf_counter()
         restored = checkpoint.restore(out)
         restore_s = time.perf_counter() - t0
@@ -3801,8 +3836,10 @@ def phase_convert(stages: dict, sam_w: dict, dpmpp_run, smi):
             + f" | stage images and mesh equal to phase 12's --sampler dpmpp run on the "
             f"in-memory tree | {smi}")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if os.path.exists(out):
+            os.remove(out)
         shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
+    return ckpts
 
 
 # --------------------------------------------------------------- multi-card
@@ -4096,12 +4133,16 @@ def phase_multicard(stage, params, smi):
     return images, launches
 
 
-def gloo_card_rank(rank: int, world: int, port: int, q, draws, steps: int):
+def gloo_card_rank(rank: int, world: int, port: int, q, draws, steps: int, surface: dict,
+                   http_port: int):
     """One of phase 22's gloo ranks on cuda:0: the sharded reconstruction
     step at phase 14's cut config with the world-one draws, then stage 1
-    of views 0-3 and 4-11 on a data mesh over both ranks."""
+    of views 0-3 and 4-11 on a data mesh over both ranks; then phase 24
+    (c), ``surface_rank``.  Each part's result goes to ``q`` as (rank,
+    part, status, value)."""
     import traceback
 
+    part = "22"
     try:
         sys.path.insert(0, REPO)
         import torch
@@ -4138,15 +4179,20 @@ def gloo_card_rank(rank: int, world: int, port: int, q, draws, steps: int):
         imgs = [stage.stage1(image, 5, indices=idx, steps=steps).cpu().numpy()
                 for idx in ([0, 1, 2, 3], list(range(4, 12)))]
         sample_s = time.perf_counter() - t0
-        q.put((rank, "ok", ({k: float(v) for k, v in m.items()}, state, imgs, f.launch_count,
-                            recon_s, sample_s)))
+        q.put((rank, part, "ok", ({k: float(v) for k, v in m.items()}, state, imgs,
+                                  f.launch_count, recon_s, sample_s)))
+        del stage, state, imgs
+        torch.cuda.empty_cache()
+        part = "24c"
+        q.put((rank, part, "ok", surface_rank(rank, surface, http_port)))
         meshes.destroy_process_group()
     except BaseException:
-        q.put((rank, "error", traceback.format_exc()))
+        q.put((rank, part, "error", traceback.format_exc()))
 
 
-def phase_gloo_card(stage, images, smi):
-    """Phase 22: two gloo ranks on cuda:0 (spawned processes): the
+def phase_gloo_card(stage, images, smi, surface: dict):
+    """Phase 22, and phase 24 (c) in the same world: two gloo ranks on
+    cuda:0 (spawned processes): the
     reconstruction data parallelism at phase 14's cut config (both ranks on
     its scene with the world-one draws, so the mean of their gradients and
     statistics is the world-one step's; full width would need two 34 GiB
@@ -4154,12 +4200,17 @@ def phase_gloo_card(stage, images, smi):
     rank samples half the views and the all-gather brings them all).  The
     images are held to world-one calls on each rank's own views: a bf16
     UNet at another batch size rounds otherwise, and 25 DDIM entries carry
-    that to ~3e-2 (printed against phase 21's whole-batch images)."""
+    that to ~3e-2 (printed against phase 21's whole-batch images).  Then
+    each rank runs ``surface_rank``, held to the one-card run of
+    ``surface_reference``."""
     import multiprocessing
     import queue as queue_mod
 
     import torch
 
+    t0 = time.perf_counter()
+    reference = surface_reference(surface)
+    surface["secs"]["one-card halves reference"] = time.perf_counter() - t0
     ref_m, ref_state, draws, _ = recon_unsharded_step(*recon_world_one(cut=True))
     image = input_image(stage.config.image_size)
     per_rank = [torch.cat([stage.stage1(image, 5, indices=idx[:len(idx) // 2],
@@ -4172,20 +4223,21 @@ def phase_gloo_card(stage, images, smi):
     q = ctx.Queue()
     port = free_port()
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=gloo_card_rank, args=(r, 2, port, q, draws, MC_SAMPLE_STEPS))
+    procs = [ctx.Process(target=gloo_card_rank, args=(r, 2, port, q, draws, MC_SAMPLE_STEPS,
+                                                      surface, free_port()))
              for r in range(2)]
     for p in procs:
         p.start()
-    results = {}
+    results, surface_results = {}, {}
     try:
-        for _ in procs:
+        for _ in range(2 * len(procs)):
             try:
-                rank, status, value = q.get(timeout=600)
+                rank, part, status, value = q.get(timeout=600)
             except queue_mod.Empty:
                 fail("gloo card: a rank gave no result in 600 s")
             if status != "ok":
-                fail(f"gloo card: rank {rank} failed:\n{value}")
-            results[rank] = value
+                fail(f"gloo card: rank {rank} failed in phase {part}:\n{value}")
+            (results if part == "22" else surface_results)[rank] = value
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -4209,7 +4261,11 @@ def phase_gloo_card(stage, images, smi):
                      f"{errs[0]:.2e} / {errs[1]:.2e} (from the whole-batch calls {whole[0]:.2e} "
                      f"/ {whole[1]:.2e}), K1 launches {launches}")
     log(f"phase gloo card: two gloo ranks on cuda:0, {time.perf_counter() - t0:.1f} s with "
-        f"their start-up: " + "; ".join(lines) + f" | {smi}")
+        f"their start-up and phase 24 (c): " + "; ".join(lines) + f" | {smi}")
+    surface["secs"]["gloo ranks: cli + server"] = max(r["total_s"]
+                                                      for r in surface_results.values())
+    surface_gloo_check(surface_results, reference, smi)
+    return sum(r["cli_k1"] + r["served_k1"] for r in surface_results.values())
 
 
 def phase_recon_bf16(smi):
@@ -4383,29 +4439,43 @@ def example_kernels() -> str:
     return "; ".join(lines)
 
 
-def phase_examples(estimator, views, smi):
-    """The in-env quality examples' torch twins on the card: wiring tier A
-    at 256^2, the three trained examples at the JAX tests' CI configs with
-    their gates (the diffusion example's tiny stage in bf16), the kernels at
-    the examples' shapes, and the match figures of phase 7's warm views."""
-    import shutil
-
+def twins_child(tf32: dict):
+    """Phase 19's recon_quality and generative_e2e twins in a process of
+    their own, beside the parent's diffusion twin (each is host-bound on
+    one core): ({name: (metrics, gates, seconds)}, K1 / dq / dkv launches)."""
     import torch
 
-    from examples import torch_diffusion_quality as tdq
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = tf32["matmul"]
+    torch.backends.cudnn.allow_tf32 = tf32["cudnn"]
     from examples import torch_generative_e2e as tge
-    from examples import torch_pipeline_wiring as tpw
     from examples import torch_recon_quality as trq
     from one2345_tpu_torch.ops.flash_attention import flash_attention
-    from one2345_tpu_torch.utils.png import read_png
 
-    t_phase = time.perf_counter()
-    log(f"phase examples: {smi}: flash kernels at the examples' shapes (H={EXAMPLE_HEADS}, "
-        f"against their plain versions, within {O_TOL} / {BWD_TOL}): {example_kernels()}")
+    twins = {}
+    t0 = time.perf_counter()
+    out = trq.run_benchmark(**RECON_QUALITY_CI, device="cuda")
+    twins["recon_quality"] = out, recon_quality_gates(out), time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = tge.run_benchmark(**GENERATIVE_E2E_CI, device="cuda")
+    images, pairs = tge.build_training_set(75.0, 32, device="cuda")
+    twins["generative_e2e"] = (out, generative_e2e_gates(out, images, pairs),
+                               time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return twins, (flash_attention.launch_count, flash_attention.dq_launch_count,
+                   flash_attention.dkv_launch_count)
+
+
+def examples_in_process(runs: dict):
+    """Phase 19's twins in this process: the wiring checks and the
+    diffusion twin, with their gates; their seconds go to ``runs``.
+    Returns the K1 / dq / dkv launches."""
+    from examples import torch_diffusion_quality as tdq
+    from examples import torch_pipeline_wiring as tpw
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
 
     flash_attention.launch_count = 0
     flash_attention.dq_launch_count = flash_attention.dkv_launch_count = 0
-    runs = {}
     t0 = time.perf_counter()
     ok = tpw.wiring_check(75.0, 256, device="cuda")
     flipped = tpw.wiring_check(75.0, 256, flip_azimuth=True, device="cuda")
@@ -4416,25 +4486,45 @@ def phase_examples(estimator, views, smi):
     check_gates("pipeline_wiring", wiring_gates(ok, flipped, high), wiring)
 
     t0 = time.perf_counter()
-    out = trq.run_benchmark(**RECON_QUALITY_CI, device="cuda")
-    runs["recon_quality"] = time.perf_counter() - t0
-    log(f"phase examples: recon_quality metrics {json.dumps(out)}")
-    check_gates("recon_quality", recon_quality_gates(out), out)
-
-    t0 = time.perf_counter()
     out = tdq.run_benchmark(**DIFFUSION_QUALITY_CI, device="cuda")
     runs["diffusion_quality"] = time.perf_counter() - t0
     log(f"phase examples: diffusion_quality (bf16) metrics {json.dumps(out)}")
     check_gates("diffusion_quality", diffusion_quality_gates(out), out)
+    return (flash_attention.launch_count, flash_attention.dq_launch_count,
+            flash_attention.dkv_launch_count)
 
-    t0 = time.perf_counter()
-    out = tge.run_benchmark(**GENERATIVE_E2E_CI, device="cuda")
-    images, pairs = tge.build_training_set(75.0, 32, device="cuda")
-    runs["generative_e2e"] = time.perf_counter() - t0
-    log(f"phase examples: generative_e2e metrics {json.dumps(out)}")
-    check_gates("generative_e2e", generative_e2e_gates(out, images, pairs), out)
-    launches = (flash_attention.launch_count, flash_attention.dq_launch_count,
-                flash_attention.dkv_launch_count)
+
+def phase_examples(estimator, views, smi):
+    """The in-env quality examples' torch twins on the card: wiring tier A
+    at 256^2, the three trained examples at the JAX tests' CI configs with
+    their gates (the diffusion example's tiny stage in bf16; the recon and
+    generative twins in a spawned process while this one runs the
+    others), the kernels at the examples' shapes, and the match figures
+    of phase 7's warm views."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from one2345_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    log(f"phase examples: {smi}: flash kernels at the examples' shapes (H={EXAMPLE_HEADS}, "
+        f"against their plain versions, within {O_TOL} / {BWD_TOL}): {example_kernels()}")
+
+    runs = {}
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as child:
+        others = child.submit(twins_child, tf32)
+        launches = examples_in_process(runs)
+        twins, child_launches = others.result()
+    for name, (out, gates, secs) in twins.items():
+        runs[f"{name} (second process)"] = secs
+        log(f"phase examples: {name} metrics {json.dumps(out)}")
+        check_gates(name, gates, out)
+    launches = tuple(a + b for a, b in zip(launches, child_launches))
     if min(launches) == 0:
         fail(f"examples: a flash kernel was not launched by the examples (K1, dq, dkv: {launches})")
 
@@ -4461,8 +4551,429 @@ def phase_examples(estimator, views, smi):
 
 
 
+# ------------------------------------------------------------------ surface
+# Phase 24: the last of the JAX package's surface on the port, at full width:
+# the real-weights runbook on phase 18's reference-format files, the CLI as a
+# torchrun world of one loading its kernels from an enable()'d directory, the
+# CLI and the HTTP server on two gloo ranks of cuda:0 (in phase 22's world),
+# the walkthrough and the demo.
+SURFACE_OUT = os.path.join(SCENES_OUT, "surface")
+
+
+class CountedRuns:
+    """Wraps ``One2345Pipeline.run`` while it is entered: each run's
+    sampler, quant mode, K1 launches, int8 GEMMs, QConv2d modules and
+    seconds go to ``runs``."""
+
+    def __init__(self):
+        self.runs = []
+
+    def __enter__(self):
+        import torch
+
+        from one2345_tpu_torch.diffusion import quantize as q
+        from one2345_tpu_torch.ops.flash_attention import flash_attention
+        from one2345_tpu_torch.pipeline import runner
+
+        self._run = run = runner.One2345Pipeline.run
+
+        def counted(pipe, *a, **k):
+            flash_attention.launch_count = q.int8_matmul.launch_count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(pipe, *a, **k)
+            torch.cuda.synchronize()
+            d = pipe.config.diffusion
+            self.runs.append({
+                "sampler": d.sampler, "quant": d.unet.quant, "k1": flash_attention.launch_count,
+                "int8": q.int8_matmul.launch_count, "s": time.perf_counter() - t0,
+                "qconv": sum(isinstance(m, q.QConv2d) for m in pipe.zero123.unet.modules())})
+            return res
+
+        runner.One2345Pipeline.run = counted
+        return self
+
+    def __exit__(self, *exc):
+        from one2345_tpu_torch.pipeline import runner
+
+        runner.One2345Pipeline.run = self._run
+        return False
+
+
+@contextlib.contextmanager
+def torch_tf32_defaults():
+    """torch's own TF32 flags for a block (a fresh process has them: the
+    torchrun CLI of phase 24 (b) is one), phase_device's after it."""
+    import torch
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = TORCH_TF32_DEFAULTS["matmul"]
+    torch.backends.cudnn.allow_tf32 = TORCH_TF32_DEFAULTS["cudnn"]
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def png_difference(a: str, b: str) -> str:
+    """Max abs and the count of differing channel values of two PNGs."""
+    import numpy as np
+
+    from one2345_tpu_torch.utils.png import read_png
+
+    x, y = read_png(a).astype(int), read_png(b).astype(int)
+    if x.shape != y.shape:
+        return f"shapes {x.shape} / {y.shape}"
+    return f"max abs {np.abs(x - y).max()}, {int((x != y).sum())} of {x.size} values"
+
+
+def differing_files(a: str, b: str) -> list:
+    """The relative paths under ``a`` and ``b`` whose bytes differ or that
+    one of them lacks."""
+    def walk(root):
+        return {os.path.relpath(os.path.join(d, f), root): os.path.join(d, f)
+                for d, _, fs in os.walk(root) for f in fs}
+
+    fa, fb = walk(a), walk(b)
+    out = sorted(set(fa) ^ set(fb))
+    for name in sorted(set(fa) & set(fb)):
+        with open(fa[name], "rb") as x, open(fb[name], "rb") as y:
+            if x.read() != y.read():
+                out.append(name)
+    return out
+
+
+def phase_surface_runbook(ckpt_dir: str, smi) -> dict:
+    """Phase 24 (a) and (b).  (a) examples/torch_validate_real_weights.main
+    on phase 18's four reference-format files (--skip_download): the
+    manifest, the golden DDIM run (4000 K1 launches), the fast-mode A/B
+    (1792 each, the int8 GEMMs counted) with "weights": "converted", then
+    the same arguments with --dry_run skip the conversion by the manifest.
+    (b) the CLI as a torchrun world of one over NCCL with --params the
+    converted file and --sampler dpmpp, its kernels loaded from a fresh
+    ONE2345_COMPILE_CACHE directory filled with phase 2's libraries (no
+    build in it): its artifacts equal the A/B's dpmpp run's, byte for byte.
+    Returns what parts (c) and (d) use."""
+    import io
+    import shutil
+
+    from examples import torch_validate_real_weights as rb
+    from one2345_tpu_torch.core import compile_cache
+    from one2345_tpu_torch.utils.download_ckpt import CKPTS
+
+    secs = {}
+    work = os.path.join(SURFACE_OUT, "runbook")
+    img_path, raw = cli_input()  # the phase-11 PNG: > 10 kB, so the runbook reads it
+    argv = ["--work", work, "--ckpt_dir", ckpt_dir, "--skip_download", "--img", img_path]
+    t0 = time.perf_counter()
+    with CountedRuns() as counted, torch_tf32_defaults():
+        code = rb.main(argv)
+    secs["runbook"] = time.perf_counter() - t0
+    params_path = os.path.join(work, "params.pt")
+    with open(rb.manifest_path(params_path)) as f:
+        manifest = json.load(f)
+    with open(os.path.join(work, "fast_mode_ab.json")) as f:
+        report = json.load(f)
+    if code != 0 or manifest != sorted(CKPTS):
+        fail(f"surface (a): the runbook exited {code}, manifest {manifest}")
+    if report["weights"] != "converted" or set(report["modes"]) != {"dpmpp", "dpmpp_int8"} or \
+            not all(math.isfinite(v) for row in report["modes"].values() for v in row.values()):
+        fail(f"surface (a): fast_mode_ab.json {report}")
+    runs = counted.runs
+    want = [("ddim", "none", 16 * (76 + 49 + 76 + 49)), ("dpmpp", "none", 16 * DPMPP_EVALS),
+            ("dpmpp", "int8", 16 * DPMPP_EVALS)]
+    if [(r["sampler"], r["quant"], r["k1"]) for r in runs] != want \
+            or runs[1]["int8"] or runs[2]["int8"] != runs[2]["qconv"] * DPMPP_EVALS \
+            or not runs[2]["qconv"]:
+        fail(f"surface (a): the runbook's runs {runs}, expected (sampler, quant, K1) {want} and "
+             f"one int8 GEMM per QConv2d and eval")
+    stamp = os.stat(params_path).st_mtime_ns
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        again = rb.main(argv + ["--dry_run"])
+    secs["runbook again (--dry_run)"] = time.perf_counter() - t0
+    if again != 0 or "already covers" not in printed.getvalue() or \
+            os.stat(params_path).st_mtime_ns != stamp:
+        fail(f"surface (a): the second main did not skip the conversion: {printed.getvalue()!r}")
+    shutil.rmtree(ckpt_dir)  # phase 18's reference files: done with
+    log("phase surface (a): examples/torch_validate_real_weights.py --skip_download on phase "
+        f"18's four reference-format files at torch's TF32 defaults "
+        f"({TORCH_TF32_DEFAULTS}): exit 0 in {secs['runbook']:.1f} s (conversion, the "
+        "golden run, the eval sweep skipped without the reference's meshes, the A/B); manifest "
+        f"{manifest}; runs " + ", ".join(
+            f"{r['sampler']}{'+int8' if r['quant'] == 'int8' else ''} {r['s']:.2f} s, K1 {r['k1']}"
+            f", int8 GEMMs {r['int8']}" for r in runs)
+        + f"; fast_mode_ab.json {json.dumps(report)}; the same arguments with --dry_run skip "
+        f"the conversion by the manifest ({secs['runbook again (--dry_run)']:.2f} s) | {smi}")
+
+    # (b) the CLI under torchrun, a world of one, kernels from an enable()'d cache
+    cache = os.path.join(PIPELINE_OUT, "compile_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    os.makedirs(cache)
+    for lib in sorted(compile_cache.build_dir().glob("lib*.so")):
+        shutil.copy2(lib, cache)
+    before = {n: os.stat(os.path.join(cache, n)).st_mtime_ns for n in os.listdir(cache)}
+    built = sorted(os.listdir(compile_cache.build_dir()))
+    out_dir = os.path.join(SURFACE_OUT, "torchrun_cli")
+    env = dict(os.environ, ONE2345_COMPILE_CACHE=cache)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_addr", "localhost", "--master_port", str(free_port()),
+           "-m", "one2345_tpu_torch.pipeline.cli", "--img_path", img_path, "--params",
+           params_path, "--sampler", "dpmpp", "--out_dir", out_dir, "--seed", "0"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    secs["torchrun cli"] = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    after = {n: os.stat(os.path.join(cache, n)).st_mtime_ns for n in os.listdir(cache)}
+    if res.returncode != 0 or f"compile cache: {cache}" not in lines:
+        fail(f"surface (b): torchrun cli exited {res.returncode}: {res.stdout[-2000:]} "
+             f"{res.stderr[-3000:]}")
+    if after != before or sorted(os.listdir(compile_cache.build_dir())) != built:
+        fail(f"surface (b): the child built into the cache ({sorted(set(after) - set(before))}) "
+             "or the checkout's directory: it should have loaded phase 2's libraries")
+    summary = json.loads(next(line for line in reversed(lines) if line.startswith("{")))
+    ab_dir = os.path.join(work, "ab", "dpmpp")
+    diff = differing_files(out_dir, ab_dir)
+    if diff or not any(line.startswith("Mesh saved to:") for line in lines):
+        pngs = [d for d in diff if d.endswith(".png")][:3]
+        fail(f"surface (b): the torchrun CLI's artifacts differ from the A/B's dpmpp run at "
+             f"{len(diff)} files, {diff[:8]}: " + "; ".join(
+                 f"{d} {png_difference(os.path.join(out_dir, d), os.path.join(ab_dir, d))}"
+                 for d in pngs))
+    n_files = sum(len(fs) for _, _, fs in os.walk(out_dir))
+    log(f"phase surface (b): python -m torch.distributed.run --nproc_per_node 1 -m "
+        f"one2345_tpu_torch.pipeline.cli --params <the runbook's file> --sampler dpmpp: exit 0 "
+        f"in {secs['torchrun cli']:.1f} s with its start-up (spans "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in summary["timings"].items())
+        + f"); loaded its kernels from ONE2345_COMPILE_CACHE={os.path.relpath(cache, REPO)} "
+        f"({len(before)} libraries copied from phase 2's build, none built: every file's "
+        f"mtime unchanged, nothing added there or to the checkout's directory); its {n_files} "
+        f"artifacts equal the A/B's dpmpp run's byte for byte | {smi}")
+    shutil.rmtree(cache, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"work": work, "params": params_path, "img": img_path, "raw": raw, "secs": secs}
+
+
+def halves(sample):
+    """``Zero123Stage._sample`` as two ranks of a ``data`` mesh run it: the
+    view batch padded to even (the last view repeated), each half sampled
+    alone, the halves joined and the pad dropped."""
+    import torch
+
+    def run(cond, T, ids, *rest):
+        B = cond.shape[0]
+        if B % 2:
+            cond = torch.cat([cond, cond[-1:]])
+            T = torch.cat([T, T[-1:]])
+            ids = list(ids) + [ids[-1]]
+        h = cond.shape[0] // 2
+        return torch.cat([sample(cond[:h], T[:h], ids[:h], *rest),
+                          sample(cond[h:], T[h:], ids[h:], *rest)])[:B]
+
+    return run
+
+
+def surface_rank(rank: int, surface: dict, port: int) -> dict:
+    """Phase 24 (c) on one of phase 22's gloo ranks: cli.main --sampler
+    dpmpp --params <the runbook's file> in the group (rank 0 writes), then
+    the HTTP server over the same weights (server.serve: rank 0 binds
+    loopback, rank 1 follows) with one /preprocess, /estimate_elevation
+    and /generate_mesh from a client thread, which stops it with SIGINT as
+    a user would.  Returns numpy."""
+    import base64
+    import signal
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from one2345_tpu_torch.core import checkpoint
+    from one2345_tpu_torch.core.config import PipelineConfig
+    from one2345_tpu_torch.ops.flash_attention import flash_attention as f
+    from one2345_tpu_torch.pipeline import cli, server
+    from one2345_tpu_torch.pipeline.api import One2345Service
+    from one2345_tpu_torch.pipeline.runner import One2345Pipeline
+
+    t_start = time.perf_counter()
+    out_dir = os.path.join(SURFACE_OUT, "gloo_cli", f"rank{rank}")
+    f.launch_count = 0
+    t0 = time.perf_counter()
+    res = cli.main(["--img_path", surface["img"], "--params", surface["params"], "--sampler",
+                    "dpmpp", "--out_dir", out_dir, "--seed", "0"], device="cuda:0")
+    cli_s, cli_k1 = time.perf_counter() - t0, f.launch_count
+    out = {"cli_s": cli_s, "cli_k1": cli_k1, "stage1": res.stage1_images.float().cpu().numpy(),
+           "stage2": res.stage2_images.float().cpu().numpy(), "vertices": res.vertices,
+           "faces": res.faces, "elevation": res.elevation, "wrote": os.path.isdir(out_dir)}
+    del res
+    cfg = cli.apply_fast_modes(PipelineConfig(), sampler="dpmpp")
+    service = One2345Service(One2345Pipeline(cfg, checkpoint.restore(surface["params"]),
+                                             device="cuda:0"))
+    f.launch_count = 0
+    if rank != 0:
+        server.serve(service, device="cuda:0")  # follows rank 0 until it stops
+        return dict(out, served_k1=f.launch_count, total_s=time.perf_counter() - t_start)
+    with open(surface["img"], "rb") as fh:
+        b64 = base64.b64encode(fh.read()).decode()
+    answers, times = [], []
+
+    def client():
+        base = f"http://127.0.0.1:{port}"
+        try:
+            for _ in range(600):  # until rank 0 listens
+                try:
+                    urllib.request.urlopen(base + "/healthz", timeout=5).close()
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            for path, payload in (("/preprocess", {"image_b64": b64}),
+                                  ("/estimate_elevation", {"seed": 0}),
+                                  ("/generate_mesh", {"mesh_resolution": 256, "seed": 0})):
+                req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                             method="POST")
+                t = time.perf_counter()
+                try:
+                    with urllib.request.urlopen(req, timeout=600) as r:
+                        answers.append((path, r.status, r.read()))
+                except urllib.error.HTTPError as e:
+                    answers.append((path, e.code, e.read()))
+                times.append(time.perf_counter() - t)
+        finally:
+            os.kill(os.getpid(), signal.SIGINT)  # stops serve_forever, as Ctrl-C does
+
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    try:
+        server.serve(service, port=port, device="cuda:0")
+    except KeyboardInterrupt:
+        pass
+    thread.join(timeout=60)
+    return dict(out, served_k1=f.launch_count, answers=answers, request_s=times,
+                total_s=time.perf_counter() - t_start)
+
+
+def surface_reference(surface: dict):
+    """The one-card run phase 24 (c)'s two ranks are held to: cli.main's
+    config with --sampler dpmpp on the runbook's file and PNG, each sampling
+    call in the two halves the ranks sample (``halves``)."""
+    import torch
+
+    from one2345_tpu_torch.core import checkpoint
+    from one2345_tpu_torch.core.config import PipelineConfig
+    from one2345_tpu_torch.pipeline.cli import apply_fast_modes
+    from one2345_tpu_torch.pipeline.runner import One2345Pipeline
+    from one2345_tpu_torch.utils.png import read_png, to_rgba
+
+    pipe = One2345Pipeline(apply_fast_modes(PipelineConfig(), sampler="dpmpp"),
+                           checkpoint.restore(surface["params"]), device="cuda:0",
+                           auto_mesh=False)
+    pipe.zero123._sample = halves(pipe.zero123._sample)
+    res = pipe.run(to_rgba(read_png(surface["img"])), seed=0)
+    del pipe
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    return res
+
+
+def surface_gloo_check(results: dict, reference, smi):
+    """Phase 24 (c) in the parent: each rank's CLI views against the
+    one-card halves reference, rank 0's artifacts only, the K1 shares, the
+    served mesh read back."""
+    import numpy as np
+
+    from one2345_tpu_torch.recon.mesh_extract import load_ply
+
+    lines = []
+    ref_s1, ref_s2 = (reference.stage1_images.float().cpu().numpy(),
+                      reference.stage2_images.float().cpu().numpy())
+    for rank in (0, 1):
+        r = results[rank]
+        errs = (float(np.abs(r["stage1"] - ref_s1).max()),
+                float(np.abs(r["stage2"] - ref_s2).max()))
+        same = errs == (0.0, 0.0)
+        mesh_same = (np.array_equal(r["vertices"], reference.vertices)
+                     and np.array_equal(r["faces"], reference.faces))
+        if max(errs) > MC_IMG_TOL or (same and not mesh_same) or \
+                r["elevation"] != reference.elevation or r["wrote"] != (rank == 0) or \
+                r["cli_k1"] != 16 * DPMPP_EVALS or not r["served_k1"]:
+            fail(f"surface (c) rank {rank}: images max abs {errs} from the one-card halves "
+                 f"reference, mesh equal {mesh_same}, elevation {r['elevation']} / "
+                 f"{reference.elevation}, wrote {r['wrote']}, K1 {r['cli_k1']} / served "
+                 f"{r['served_k1']}")
+        lines.append(f"rank {rank}: cli.main {r['cli_s']:.1f} s, K1 {r['cli_k1']} (every eval on "
+                     f"its half of each batch), stage images max abs {errs[0]:.1e} / "
+                     f"{errs[1]:.1e} from one-card calls on the same views, mesh equal "
+                     f"{mesh_same}, wrote {r['wrote']}; K1 while serving {r['served_k1']}")
+    answers = results[0]["answers"]
+    if [(p, s) for p, s, _ in answers] != [("/preprocess", 200), ("/estimate_elevation", 200),
+                                           ("/generate_mesh", 200)]:
+        fail(f"surface (c): the server answered {[(p, s, b[:300]) for p, s, b in answers]}")
+    ply = os.path.join(SURFACE_OUT, "served.ply")
+    with open(ply, "wb") as fh:
+        fh.write(answers[2][2])
+    verts, faces, colors = load_ply(ply)
+    check_mesh("surface (c) served", {"vertices": verts, "faces": faces,
+                                      "colors": colors.astype(np.float32) / 255.0})
+    elevation = json.loads(answers[1][2])["elevation"]
+    log("phase surface (c): two gloo ranks on cuda:0 (phase 22's world): " + "; ".join(lines)
+        + f" | the server (rank 0 on loopback, rank 1 following): /preprocess, "
+        f"/estimate_elevation ({elevation}), /generate_mesh ({len(verts)} vertices, "
+        f"{len(faces)} faces read back), "
+        + ", ".join(f"{t:.1f}" for t in results[0]["request_s"]) + f" s | {smi}")
+
+
+def phase_surface_examples(surface: dict, smi):
+    """Phase 24 (d): examples/torch_walkthrough.main and
+    examples/torch_demo.main on the card with --params the runbook's file
+    and its input PNG: 4000 K1 launches each, their artifacts read back."""
+    import numpy as np
+
+    from examples import torch_demo, torch_walkthrough
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+    from one2345_tpu_torch.recon.mesh_extract import load_ply
+    from one2345_tpu_torch.utils.png import read_png
+
+    expected = 16 * (76 + 49 + 76 + 49)
+    secs = {}
+    walk = os.path.join(SURFACE_OUT, "walkthrough")
+    flash_attention.launch_count = 0
+    t0 = time.perf_counter()
+    summary = torch_walkthrough.main(["--img", surface["img"], "--out", walk, "--params",
+                                      surface["params"]])
+    secs["walkthrough"] = time.perf_counter() - t0
+    k1 = flash_attention.launch_count
+    verts, faces, _ = load_ply(os.path.join(walk, "6_mesh.ply"))
+    shapes = [read_png(os.path.join(walk, n)).shape for n in torch_walkthrough.ARTIFACTS[:3]]
+    if k1 != expected or sorted(os.listdir(walk)) != sorted(torch_walkthrough.ARTIFACTS) or \
+            (len(verts), len(faces)) != (summary["mesh_vertices"], summary["mesh_faces"]) or \
+            shapes != [(256, 256, 3), (512, 1024, 3), (1024, 2048, 3)] or not len(faces):
+        fail(f"surface (d): walkthrough K1 {k1}, files {sorted(os.listdir(walk))}, summary "
+             f"{summary}, PNG shapes {shapes}")
+    demo = os.path.join(SURFACE_OUT, "demo")
+    flash_attention.launch_count = 0
+    t0 = time.perf_counter()
+    res = torch_demo.main(["--img_path", surface["img"], "--out_dir", demo, "--params",
+                           surface["params"]])
+    secs["demo"] = time.perf_counter() - t0
+    k1 = flash_attention.launch_count
+    v, fc, _ = load_ply(os.path.join(demo, "mesh.ply"))
+    n_png = sum(name.endswith(".png") for _, _, fs in os.walk(demo) for name in fs)
+    if k1 != expected or not np.array_equal(v, res.vertices.astype(np.float32)) or \
+            not np.array_equal(fc, res.faces) or n_png != 40 or \
+            not os.path.isfile(os.path.join(demo, "pose.json")):
+        fail(f"surface (d): demo K1 {k1}, mesh read back equal "
+             f"{np.array_equal(fc, res.faces)}, {n_png} PNGs")
+    log(f"phase surface (d): examples/torch_walkthrough.py --params (SAM on, DDIM) "
+        f"{secs['walkthrough']:.1f} s, K1 {expected}, summary {json.dumps(summary)}, its 5 "
+        f"artifacts read back; examples/torch_demo.py --params {secs['demo']:.1f} s, K1 "
+        f"{expected}, elevation {res.elevation}, {len(res.vertices)} vertices, mesh.ply, 40 "
+        f"PNGs and pose.json read back | seconds of phase 24: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in {**surface["secs"], **secs}.items())
+        + f" | {smi}")
+
+
 def main() -> int:
     import shutil
+
+    t_script = time.perf_counter()
 
     try:
         import torch
@@ -4477,47 +4988,54 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
 
-    smi, exp_rate = phase_device()
-    phase_build()
-    rows = phase_kernels(exp_rate)
-    bwd_rows = phase_kernels_bwd(exp_rate)
-    unet_weights = phase_unet()
-    phase_grad()
+    smi, exp_rate = timed("device", phase_device)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, exp_rate)
+    bwd_rows = timed("kernels_bwd", phase_kernels_bwd, exp_rate)
+    unet_weights = timed("unet", phase_unet)
+    timed("grad", phase_grad)
     stage, params = build_stage(unet_weights)
-    _, s2 = phase_sampling(stage, smi)
-    loftr_w, estimator = phase_elevation(s2[0], smi)
-    recon_stage, recon_images, recon_cams, recon_p = phase_recon(s2, smi)
+    _, s2 = timed("sampling", phase_sampling, stage, smi)
+    loftr_w, estimator = timed("elevation", phase_elevation, s2[0], smi)
+    recon_stage, recon_images, recon_cams, recon_p = timed("recon", phase_recon, s2, smi)
     views = s2[0].clone()
     del s2
-    pipeline_mesh = phase_pipeline(params, recon_p, loftr_w, smi)
-    sam_stage, sam_w, sam_image = phase_preprocess(params, smi)
+    pipeline_mesh = timed("pipeline", phase_pipeline, params, recon_p, loftr_w, smi)
+    sam_stage, sam_w, sam_image = timed("preprocess", phase_preprocess, params, smi)
     stages = {"zero123": params, "recon": recon_p, "loftr": loftr_w}
-    cli_run_ddim = phase_cli(stages, sam_w, smi)
+    cli_run_ddim = timed("cli", phase_cli, stages, sam_w, smi)
     launches = cli_run_ddim[2]
-    card_int8_unet, cli_run_dpmpp = phase_fast_modes(stage, unet_weights, stages, sam_w,
-                                                     cli_run_ddim, smi)
+    card_int8_unet, cli_run_dpmpp = timed("fast_modes", phase_fast_modes, stage, unet_weights,
+                                          stages, sam_w, cli_run_ddim, smi)
     del cli_run_ddim
-    _, dq_launches, dkv_launches = phase_train(stage, params, smi)
+    _, dq_launches, dkv_launches = timed("train", phase_train, stage, params, smi)
     try:
-        recon_trainer, recon_scene = phase_recon_train(smi)
-        phase_finetune(recon_p, smi)
-        phase_train_zero123(params, smi)
-        phase_eval(pipeline_mesh, smi)
-        phase_convert(stages, sam_w, cli_run_dpmpp, smi)
+        recon_trainer, recon_scene = timed("recon_train", phase_recon_train, smi)
+        timed("finetune", phase_finetune, recon_p, smi)
+        timed("train_zero123", phase_train_zero123, params, smi)
+        timed("eval", phase_eval, pipeline_mesh, smi)
+        ckpt_dir = timed("convert", phase_convert, stages, sam_w, cli_run_dpmpp, smi)
         del sam_w, cli_run_dpmpp
-        world_one_images, sharded_launches = phase_multicard(stage, params, smi)
-        phase_gloo_card(stage, world_one_images, smi)
-        phase_recon_bf16(smi)
+        surface = timed("surface_runbook", phase_surface_runbook, ckpt_dir, smi)
+        world_one_images, sharded_launches = timed("multicard", phase_multicard, stage, params,
+                                                   smi)
+        sharded_launches[0] += timed("gloo_card", phase_gloo_card, stage, world_one_images, smi,
+                                     surface)
+        timed("recon_bf16", phase_recon_bf16, smi)
+        timed("surface_examples", phase_surface_examples, surface, smi)
     finally:
         shutil.rmtree(SCENES_OUT, ignore_errors=True)
+        shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
     log(f"{SCENES_OUT} removed")
-    phase_examples(estimator, views, smi)
-    phase_device_times(rows, bwd_rows)
-    phase_recon_profile(recon_stage, recon_images, recon_cams, smi)
-    phase_elevation_profile(estimator, views, smi)
-    phase_sam_profile(sam_stage, sam_image, smi)
-    phase_fast_modes_profile(stage, card_int8_unet, smi)
-    phase_recon_train_profile(recon_trainer, recon_scene, smi)
+    timed("examples", phase_examples, estimator, views, smi)
+    timed("device_times", phase_device_times, rows, bwd_rows)
+    timed("recon_profile", phase_recon_profile, recon_stage, recon_images, recon_cams, smi)
+    timed("elevation_profile", phase_elevation_profile, estimator, views, smi)
+    timed("sam_profile", phase_sam_profile, sam_stage, sam_image, smi)
+    timed("fast_modes_profile", phase_fast_modes_profile, stage, card_int8_unet, smi)
+    timed("recon_train_profile", phase_recon_train_profile, recon_trainer, recon_scene, smi)
+    log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; the script "
+        f"{time.perf_counter() - t_script:.1f} s")
 
     def json_bound_by(by: str) -> str:
         # the line names two kinds of bound: the exp unit's rate is a peak

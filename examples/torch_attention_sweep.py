@@ -77,9 +77,10 @@ def shape_text(shape) -> str:
 def build(variants):
     """One library per variant, all nvcc processes started together:
     {index: (path or None, {instance: (registers, spill bytes)}, log)}."""
+    from one2345_tpu_torch.core import compile_cache
     from one2345_tpu_torch.ops import _build
 
-    out_dir = _build.BUILD_DIR / "sweep"
+    out_dir = compile_cache.build_dir() / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     source = _build.CSRC / "flash_attention_bwd.cu"
     procs = {}

@@ -2,11 +2,12 @@
 (``marching_tets.cpp``, a copy of ``one2345_tpu/native/marching_tets.cpp``)
 and the PNG row unfiltering (``png_unfilter.cpp``).
 
-At first use each source is compiled into ``one2345_tpu_torch/_build/``
-under a name that carries a hash of the source, so an edited source is
-never served from a stale build:
+At first use each source is compiled into ``core.compile_cache.build_dir()``
+(``one2345_tpu_torch/_build/`` unless ``compile_cache.enable`` chose
+another) under a name that carries a hash of the source, so an edited
+source is never served from a stale build:
 
-    g++ -O3 -shared -fPIC -std=c++17 -o _build/lib<stem>-<hash>.so <stem>.cpp
+    g++ -O3 -shared -fPIC -std=c++17 -o <build dir>/lib<stem>-<hash>.so <stem>.cpp
 
 A failed build raises: neither the mesh path nor the PNG reader has a
 fallback.
@@ -23,9 +24,10 @@ from pathlib import Path
 
 import numpy as np
 
+from one2345_tpu_torch.core import compile_cache
+
 SOURCE = Path(__file__).resolve().parent / "marching_tets.cpp"
 PNG_SOURCE = SOURCE.with_name("png_unfilter.cpp")
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: dict[Path, ctypes.CDLL] = {}
@@ -34,7 +36,7 @@ _lock = threading.Lock()  # the server decodes PNGs on several threads
 
 def library_path(source: Path = SOURCE) -> Path:
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    return compile_cache.build_dir() / f"lib{source.stem}-{digest}.so"
 
 
 def build(source: Path = SOURCE) -> Path:
@@ -42,7 +44,7 @@ def build(source: Path = SOURCE) -> Path:
     lib = library_path(source)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     res = subprocess.run(
         ["g++", *GXX_FLAGS, "-o", str(tmp), str(source)], capture_output=True, text=True

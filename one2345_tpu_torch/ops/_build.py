@@ -1,7 +1,9 @@
 """Build the package's CUDA kernels with nvcc at first use and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and is
-compiled on its own into ``one2345_tpu_torch/_build/lib<name>-<hash>.so``:
+compiled on its own into ``<build dir>/lib<name>-<hash>.so``, where the build
+directory is ``core.compile_cache.build_dir()`` (``one2345_tpu_torch/_build/``
+unless ``compile_cache.enable`` chose another):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
@@ -23,8 +25,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from one2345_tpu_torch.core import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,14 +54,15 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return compile_cache.build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, Path]:
     """Compile every kernel in ``names`` that has no current build, one nvcc
     process per source, all started together.  Raises on a failed build."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {name: library_path(name) for name in names}
+    for lib in out.values():
+        lib.parent.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, lib in out.items():
         if lib.exists():

@@ -84,6 +84,11 @@ class One2345Service:
         self._session["input_256"] = out
         return out
 
+    def reset_session(self) -> None:
+        """Forget the session: the next ``generate_mesh`` needs a new
+        ``preprocess`` and ``estimate_elevation``."""
+        self._session.clear()
+
     @property
     def last_input_unsafe(self) -> bool:
         return bool(self._session.get("unsafe", False))

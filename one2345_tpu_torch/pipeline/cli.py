@@ -9,7 +9,18 @@ RGBA; ``--params`` names a ``core.checkpoint`` file (the tree
 ``One2345Pipeline.save_params`` writes).  The fast modes stack:
 ``--sampler dpmpp`` (DPM-Solver++(2M), 30 / 25 steps unless ``--steps``
 says otherwise), ``--sampler plms``, and ``--quant int8`` (the W8A8 int8
-UNet).  The JAX CLI's XLA compile cache has no counterpart here.
+UNet).  As the JAX CLI enables XLA's compile cache, this one calls
+``core.compile_cache.enable()`` first: the kernels are built into (and
+loaded from) ``$ONE2345_COMPILE_CACHE`` when it is set, and the directory
+is printed.
+
+Under ``torchrun`` every rank runs ``main``; each takes ``cuda:LOCAL_RANK``
+(``--gpu_idx`` applies only without ``torchrun``) and the runner shards
+the view batches over the ranks when their count divides 8, as the JAX
+CLI's runner shards them over the local devices; rank 0 alone writes the
+artifacts and prints the result lines:
+
+    torchrun --nproc_per_node 4 -m one2345_tpu_torch.pipeline.cli --img_path input.png
 """
 
 from __future__ import annotations
@@ -78,11 +89,30 @@ def main(argv=None, params: dict | None = None, device=None):
 
     :param params: a parameter tree as ``--params`` would load (it takes
         precedence), e.g. for callers that hold the weights in memory
-    :param device: None -> 'cuda:<gpu_idx>' (raises without CUDA)
+    :param device: None -> the card: 'cuda:<gpu_idx>', or under
+        ``torchrun`` 'cuda:LOCAL_RANK' (raises without CUDA).  Inside a
+        process group the caller started, ``main`` runs on that group with
+        this device.
     """
     args = build_parser().parse_args(argv)
 
+    import torch
+    import torch.distributed as dist
+
+    from one2345_tpu_torch.core import compile_cache, meshes
     from one2345_tpu_torch.core.device import resolve_device
+
+    print("compile cache:", compile_cache.enable(), flush=True)
+    if device is None and not (dist.is_initialized() or "RANK" in os.environ):
+        resolve_device(None)  # raises without CUDA
+        torch.cuda.set_device(args.gpu_idx)  # the kernels launch on the current card
+        device = f"cuda:{args.gpu_idx}"
+    with meshes.process_group(device) as dev:
+        return _run(args, params, device or dev)
+
+
+def _run(args, params, device):
+    from one2345_tpu_torch.core import meshes
     from one2345_tpu_torch.pipeline.runner import One2345Pipeline
     from one2345_tpu_torch.utils.png import read_png, to_rgba
 
@@ -94,12 +124,6 @@ def main(argv=None, params: dict | None = None, device=None):
     shape_id = os.path.splitext(os.path.basename(args.img_path))[0]
     out_dir = args.out_dir or os.path.join("exp", shape_id)
 
-    if device is None:
-        import torch
-
-        resolve_device(None)  # raises without CUDA
-        torch.cuda.set_device(args.gpu_idx)  # the kernels launch on the current card
-        device = f"cuda:{args.gpu_idx}"
     pipeline = One2345Pipeline(cfg, params, use_sam=not args.no_sam, device=device)
     t0 = time.perf_counter()
     image = to_rgba(read_png(args.img_path))
@@ -108,9 +132,10 @@ def main(argv=None, params: dict | None = None, device=None):
         image, out_dir=out_dir, mesh_resolution=args.mesh_resolution,
         output_format=args.output_format, seed=args.seed,
     )
-    print("Mesh saved to:", result.mesh_path)
-    print(json.dumps({"elevation": result.elevation, "read_png": read_s,
-                      "timings": result.timings}))
+    if meshes.rank() == 0:
+        print("Mesh saved to:", result.mesh_path)
+        print(json.dumps({"elevation": result.elevation, "read_png": read_s,
+                          "timings": result.timings}))
     return result
 
 

@@ -60,8 +60,9 @@ def main(argv=None, device=None):
     trains its own scene of every step.  Returns the trainer."""
     args = build_parser().parse_args(argv)
 
-    from one2345_tpu_torch.core import meshes
+    from one2345_tpu_torch.core import compile_cache, meshes
 
+    compile_cache.enable()
     with meshes.process_group(device) as dev:
         return _train(args, dev)
 

@@ -6,8 +6,12 @@ metrics, the parameters, the running statistics averaged over the
 ranks); ``train_recon.main`` on the two ranks, its checkpoint loaded by a
 one-rank trainer; the view-batch sharded stage 1 (8 views, 4 views padded
 to the mesh, and dpmpp) against the unsharded JAX stage with JAX's noise,
-as tests/test_multichip_inference.py holds the sharded JAX stage."""
+as tests/test_multichip_inference.py holds the sharded JAX stage; the
+runner, the image -> mesh CLI and the HTTP server's broadcast path
+(``server.Dispatcher``) on the two ranks against one process."""
 
+import base64
+import json
 import os
 
 import jax
@@ -223,3 +227,115 @@ def test_runner_shards_its_view_batches_over_the_ranks(world, tmp_path):
     assert out[1]["mesh_path"] is None
     names = sorted(os.listdir(tmp_path / "out"))
     assert names == ["mesh.obj", "mesh.ply", "pose.json", "stage1_8", "stage2_8"]
+
+
+# ------------------------------------------------- the CLI and the server on ranks
+def _rgba_image():
+    """An object (a textured ellipse) on a transparent ground, 48 x 64."""
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[:48, :64]
+    obj = ((yy - 26) / 15.0) ** 2 + ((xx - 30) / 17.0) ** 2 < 1
+    img = np.zeros((48, 64, 4), np.uint8)
+    img[obj, :3] = rng.integers(20, 200, (int(obj.sum()), 3))
+    img[obj, 3] = 255
+    return img
+
+
+def _files(root) -> dict:
+    return {os.path.relpath(os.path.join(d, f), root): os.path.join(d, f)
+            for d, _, fs in os.walk(root) for f in fs}
+
+
+def test_cli_in_a_process_group_shards_and_rank0_writes(world, tmp_path):
+    """``cli.main`` on each of two ranks (as under torchrun) against a
+    one-process ``cli.main``: the stage images within the sharded stage's
+    IMG_TOL on every rank, the mesh within 1e-4; rank 0 alone writes the
+    artifacts and prints the result lines, and its files match the one
+    process's (the stage PNGs at most one level apart where the images
+    differ, pose.json equal, the PLY's vertices within 1e-4)."""
+    from one2345_tpu_torch.pipeline import cli
+    from one2345_tpu_torch.recon.mesh_extract import load_ply
+    from one2345_tpu_torch.utils.png import read_png, write_png
+    from tests.torch_dist_workers import _tiny_entry_points
+
+    path = str(tmp_path / "in.png")
+    write_png(path, _rgba_image())
+    argv = ["--img_path", path, "--no_sam", "--mesh_resolution", "24"]
+    world.submit("cli_main", argv, str(tmp_path / "ranks"))
+    undo = _tiny_entry_points()
+    try:
+        ref = cli.main(argv + ["--out_dir", str(tmp_path / "one")], device="cpu")
+    finally:
+        undo()
+    out = world.collect("cli_main")
+    assert [r["data"] for r in out] == [[2], [2]]  # the runner's auto mesh over the ranks
+    assert [r["wrote"] for r in out] == [True, False]
+    assert out[1]["mesh_path"] is None
+    assert [line.split(":")[0] for line in out[1]["printed"].splitlines()] == ["compile cache"]
+    assert out[0]["printed"].splitlines()[1].startswith("Mesh saved to:")
+    assert json.loads(out[0]["printed"].splitlines()[2])["elevation"] == ref.elevation
+    for r in out:
+        assert max_err(r["stage1"], ref.stage1_images) < IMG_TOL
+        assert max_err(r["stage2"], ref.stage2_images) < IMG_TOL
+        assert r["faces"].shape == ref.faces.shape and len(ref.faces) > 0
+        assert max_err(r["vertices"], ref.vertices) < 1e-4
+    got, want = _files(tmp_path / "ranks" / "rank0"), _files(tmp_path / "one")
+    assert sorted(got) == sorted(want) and len(got) == 2 + 8 + 32
+    for name in want:
+        if name.endswith(".png"):
+            a, b = read_png(got[name]).astype(int), read_png(want[name]).astype(int)
+            assert np.abs(a - b).max() <= 1, name
+        elif name == "pose.json":
+            with open(got[name]) as fa, open(want[name]) as fb:
+                assert fa.read() == fb.read()
+    (va, fa, _), (vb, fb, _) = load_ply(got["mesh.ply"]), load_ply(want["mesh.ply"])
+    assert fa.shape == fb.shape and max_err(va, vb) < 1e-4
+
+
+def test_server_dispatches_every_call_to_every_rank(world, tmp_path):
+    """Five requests through the HTTP server on rank 0 of two, each service
+    call broadcast and made on both ranks in one order: /preprocess,
+    /estimate_elevation and /generate_mesh give the one-process service's
+    answers; a /preprocess that raises on rank 1 fails the request (500,
+    naming the rank) and resets both sessions, so rank 0 refuses the next
+    /generate_mesh before it goes out (the session has no stage-1 views)."""
+    from one2345_tpu_torch.pipeline import server
+    from one2345_tpu_torch.pipeline.api import One2345Service
+    from one2345_tpu_torch.recon.mesh_extract import load_ply
+    from one2345_tpu_torch.utils.png import encode_png
+    from tests.torch_dist_workers import tiny_pipeline
+
+    b64 = base64.b64encode(encode_png(_rgba_image())).decode()
+    mesh_req = ("/generate_mesh", {"mesh_resolution": 24, "seed": 0})
+    requests = [("/preprocess", {"image_b64": b64}), ("/estimate_elevation", {"seed": 0}),
+                mesh_req, ("/preprocess", {"image_b64": b64}), mesh_req]
+    world.submit("served_calls", requests, 1, 4)
+    one = One2345Service(tiny_pipeline())
+    pre = one.preprocess(server._decode_image(b64))
+    elevation = one.estimate_elevation(seed=0)
+    mesh = one.generate_mesh(mesh_resolution=24, seed=0)
+    out = world.collect("served_calls")
+    calls = ["preprocess", "estimate_elevation", "generate_mesh", "preprocess", "generate_mesh"]
+    assert [r["made"] for r in out] == [calls[:4], calls[:4]]
+    answers = out[0]["answers"]
+    assert [status for status, _ in answers] == [200, 200, 200, 500, 500]
+    assert json.loads(answers[0][1])["image_b64"] == server._encode_image(pre)
+    assert json.loads(answers[1][1])["elevation"] == elevation
+    ply = tmp_path / "served.ply"
+    ply.write_bytes(answers[2][1])
+    verts, faces, _ = load_ply(str(ply))
+    assert faces.shape == mesh["faces"].shape and len(faces) > 0
+    assert max_err(verts, mesh["vertices"]) < 1e-4
+    assert json.loads(answers[3][1])["error"] == "RankError: rank 1: RuntimeError: injected fault"
+    assert json.loads(answers[4][1])["error"] == "KeyError: 'stage1_all'"
+
+
+def test_an_idle_server_outlives_its_group_timeout(world):
+    """The followers wait for the next call on the store, not in a
+    collective: a server whose group times out after 2 s stays idle for 5 s
+    and then serves; a seed that is no integer fails on rank 0 before the
+    call goes out."""
+    out = world.run("served_after_idle", 5.0, 2.0)
+    assert [r["made"] for r in out] == [["preprocess"] * 2] * 2
+    assert out[0]["answers"] == [(200, None), (200, None),
+                                 (500, "TypeError: seed must be an integer, not '0'")]

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from one2345_tpu.ops import flash_attention as jax_fa
+from one2345_tpu_torch.core import compile_cache
 from one2345_tpu_torch.core.config import DiffusionConfig
 from one2345_tpu_torch.diffusion import unet as unet_mod
 from one2345_tpu_torch.ops import _build
@@ -253,7 +254,8 @@ def test_library_path_changes_with_every_shared_header(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edited\n')
     fourth = _build.library_path("k")
     assert len({first, second, third, fourth}) == 4
-    assert all(p.parent == _build.BUILD_DIR and p.name.startswith("libk-") for p in (first, fourth))
+    assert all(p.parent == compile_cache.build_dir() and p.name.startswith("libk-")
+               for p in (first, fourth))
 
 
 def test_entry_points_are_bound_once(monkeypatch):

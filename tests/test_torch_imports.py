@@ -91,6 +91,8 @@ def test_package_imports_no_jax_and_nothing_of_the_jax_package():
         "one2345_tpu_torch.utils.convert_cli",
         "one2345_tpu_torch.nn.init",
         "one2345_tpu_torch.elevation.plotting",
+        "one2345_tpu_torch.core.compile_cache",
+        "one2345_tpu_torch.utils.download_ckpt",
     ):
         assert module in report["modules"]
     leaked = [
@@ -236,7 +238,8 @@ def test_torch_examples_import_nothing_forbidden():
     paths = sorted(glob.glob(os.path.join(REPO, "examples", "torch_*.py")))
     names = {os.path.basename(p) for p in paths}
     assert {"torch_pipeline_wiring.py", "torch_recon_quality.py", "torch_diffusion_quality.py",
-            "torch_generative_e2e.py"} <= names
+            "torch_generative_e2e.py", "torch_walkthrough.py", "torch_demo.py",
+            "torch_validate_real_weights.py"} <= names
     for path in paths:
         imported = _imported(path)
         assert not [m for m in imported if m.split(".")[0] in FORBIDDEN], (path, imported)
@@ -244,6 +247,16 @@ def test_torch_examples_import_nothing_forbidden():
         assert all(m.split(".")[1].startswith("torch_") for m in examples), (path, examples)
     assert "examples.torch_pipeline_wiring" in _imported(
         os.path.join(REPO, "examples", "torch_generative_e2e.py"))
+
+
+def test_every_jax_module_has_a_twin():
+    """Every module of one2345_tpu has a module of the same path in the port."""
+    def modules(package: str) -> set:
+        root = os.path.join(REPO, package)
+        return {os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root)
+                for f in fs if f.endswith(".py") and "__pycache__" not in d}
+
+    assert modules("one2345_tpu") - modules("one2345_tpu_torch") == set()
 
 
 def test_card_tests_import_no_jax():

@@ -244,3 +244,171 @@ def pipeline_run(image, out_dir: str):
     return {"stage1": res.stage1_images, "stage2": res.stage2_images,
             "vertices": res.vertices, "faces": res.faces, "mesh_path": res.mesh_path,
             "data": meshes.axis_size(pipe.zero123.mesh, "data")}
+
+
+def _tiny_entry_points():
+    """Patch the CLI's config to the tiny runner's and pin every
+    pipeline's elevation to polar 60; returns the undo."""
+    from one2345_tpu_torch.pipeline import cli, runner
+
+    cfg = tiny_pipeline().config
+    saved = cli.build_config, runner.One2345Pipeline.estimate_elevation
+    cli.build_config = lambda args: cfg.replace(seed=args.seed)
+    runner.One2345Pipeline.estimate_elevation = lambda self, views: 60.0
+
+    def undo():
+        cli.build_config, runner.One2345Pipeline.estimate_elevation = saved
+
+    return undo
+
+
+def cli_main(argv, out_root: str):
+    """``cli.main`` of the tiny config on this rank, in the group, with
+    ``--out_dir <out_root>/rank<r>``: the stage images, the mesh, what the
+    rank printed and wrote."""
+    import contextlib
+    import io
+
+    from one2345_tpu_torch.core import meshes
+    from one2345_tpu_torch.pipeline import cli, runner
+
+    out_dir = os.path.join(out_root, f"rank{meshes.rank()}")
+    undo = _tiny_entry_points()
+    printed, data = io.StringIO(), []
+    run = runner.One2345Pipeline.run
+
+    def recorded(self, *a, **k):
+        data.append(meshes.axis_size(self.zero123.mesh, "data"))
+        return run(self, *a, **k)
+
+    runner.One2345Pipeline.run = recorded
+    try:
+        with contextlib.redirect_stdout(printed):
+            res = cli.main(argv + ["--out_dir", out_dir], device="cpu")
+    finally:
+        runner.One2345Pipeline.run = run
+        undo()
+    return {"stage1": res.stage1_images, "stage2": res.stage2_images,
+            "vertices": res.vertices, "faces": res.faces, "mesh_path": res.mesh_path,
+            "printed": printed.getvalue(), "wrote": os.path.isdir(out_dir), "data": data}
+
+
+def served_calls(requests, fail_on_rank: int, fail_at: int):
+    """The HTTP server on rank 0 (loopback, a free port) over the tiny
+    service, the other ranks following its ``Dispatcher``; rank 0 sends
+    ``requests`` ([(path, payload)]) and returns the answers ([(status,
+    body)]).  On rank ``fail_on_rank`` the ``fail_at``-th service call
+    raises.  Every rank returns the calls it made."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from one2345_tpu_torch.core import meshes
+    from one2345_tpu_torch.pipeline import server
+    from one2345_tpu_torch.pipeline.api import One2345Service
+
+    service = One2345Service(tiny_pipeline())
+    made = []
+    call = server.Dispatcher._call
+
+    def recorded(self, method, kwargs):
+        made.append(method)
+        if meshes.rank() == fail_on_rank and len(made) == fail_at:
+            raise RuntimeError("injected fault")
+        return call(self, method, kwargs)
+
+    dispatcher = server.Dispatcher(service, "cpu")
+    dispatcher._call = recorded.__get__(dispatcher)
+    if meshes.rank() != 0:
+        dispatcher.follow()
+        return {"made": made}
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                server.make_handler(service, threading.Lock(), dispatcher))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    answers = []
+    try:
+        for path, payload in requests:
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}{path}",
+                                         data=json.dumps(payload).encode(), method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers.append((r.status, r.read()))
+            except urllib.error.HTTPError as e:
+                answers.append((e.code, e.read()))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        dispatcher.stop()
+    return {"made": made, "answers": answers}
+
+
+def served_after_idle(idle: float, timeout: float):
+    """The HTTP server on rank 0 over a service whose ``preprocess`` echoes
+    its image (no model, no collective), its ``Dispatcher`` settling each
+    call in a gloo group of ``timeout`` seconds: a /preprocess, ``idle``
+    seconds with no request, a /preprocess again, and an /estimate_elevation
+    with a seed that is no integer.  Rank 0 returns the answers' statuses
+    and errors; every rank returns the calls it made."""
+    import datetime
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch.distributed as dist
+
+    from one2345_tpu_torch.core import meshes
+    from one2345_tpu_torch.pipeline import server
+
+    class Echo:
+        def __init__(self):
+            self.made, self._session = [], {}
+
+        def preprocess(self, image):
+            self.made.append("preprocess")
+            return image[..., :3] / 255.0
+
+        def reset_session(self):
+            self._session = {}
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=timeout))
+    service = Echo()
+    dispatcher = server.Dispatcher(service, "cpu", group=group)
+    try:
+        if meshes.rank() != 0:
+            dispatcher.follow()
+            return {"made": service.made}
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    server.make_handler(service, threading.Lock(), dispatcher))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        image = server._encode_image(np.ones((8, 8, 3), np.float32))
+        answers = []
+
+        def post(path, payload):
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}{path}",
+                                         data=json.dumps(payload).encode(), method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    answers.append((r.status, None))
+            except urllib.error.HTTPError as e:
+                answers.append((e.code, json.loads(e.read())["error"]))
+
+        try:
+            post("/preprocess", {"image_b64": image})
+            threading.Event().wait(idle)
+            post("/preprocess", {"image_b64": image})
+            post("/estimate_elevation", {"seed": "0"})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=10)
+            dispatcher.stop()
+        return {"made": service.made, "answers": answers}
+    finally:
+        dist.destroy_process_group(group)
