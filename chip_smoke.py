@@ -7,11 +7,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
    in the checkout (one process per source, all started together), with
-   ptxas's registers, shared memory and spills for every instance; any
-   spill fails the run;
+   ptxas's registers, shared memory, spills and warnings for every
+   instance; any spill, or a setmaxnreg that ptxas ignored (C7508), fails
+   the run;
 3. kernels: the forward kernel against its plain PyTorch version at every
-   shape the sampling path gives it and at two ragged shapes (16-byte and
-   4-byte copies), then the two backward kernels against the plain
+   shape the sampling path gives it (no input staged) and at two ragged
+   shapes (the second, D = 42, through one staged copy for the tensor
+   maps), then the two backward kernels against the plain
    backward at every shape the train step gives them and at the same two
    ragged shapes (bf16 N(0, 1) inputs from a seeded generator), and two
    launches of each at level 0 bit for bit; with the kernels', the plain
@@ -198,8 +200,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
    ElevationEstimator.save_match_visualizations on phase 7's warm views,
    the six PNGs read back; seconds per part;
 20. device times: each kernel's device time per launch (torch.profiler) at
-   the shapes of phase 3, and the device time of SDPA's backward (the
-   library yardstick of the backward kernels, with its kernels' names),
+   the shapes of phase 3, and the device times of SDPA's forward and
+   backward (the library yardsticks of the kernels, with their names),
    after the timed phases 6 to 19, which a profiled run can slow on the
    host; then one warm reconstruct, one warm elevation estimate and one
    warm bf16 SAM encode under torch.profiler: device ms by kernel family
@@ -404,8 +406,9 @@ ATTENTION_SHAPES = [
     ("mid_b56", 56, 16, 8, 160),
 ]
 HEADLINE_SHAPE = "level0_b56"  # the heaviest call: its numbers go in the JSON line
-# (name, B, T, S, H, D, copy width in bytes) of the forward's ragged checks:
-# T and S not multiples of the tiles, and D not a multiple of 8
+# (name, B, T, S, H, D, copy width in bytes) of the ragged checks: T and S
+# not multiples of the tiles, and D not a multiple of 8 (the backward's
+# 4-byte copies; the forward stages such inputs for its tensor maps)
 RAGGED_SHAPES = [("ragged_16b", 2, 1000, 1000, 8, 40, 16), ("ragged_4b", 3, 77, 200, 4, 42, 4)]
 # (name, T=S, D) of every attention backward of the train step (B=8, H=8)
 TRAIN_SHAPES = [("level0", 1024, 40), ("level1", 256, 80), ("level2", 64, 160), ("mid", 16, 160)]
@@ -426,6 +429,18 @@ def fail(msg: str):
 
 
 PHASE_SECONDS: dict[str, float] = {}  # wall seconds of each phase, in order
+
+
+def unstaged(label: str) -> int:
+    """K1's launches since its counts were set to 0; fails if any of them
+    staged its inputs first (the main path's q, k and v go to the forward's
+    tensor maps as they are)."""
+    from one2345_tpu_torch.ops.flash_attention import flash_attention
+
+    if flash_attention.staged_count:
+        fail(f"{label}: {flash_attention.staged_count} of {flash_attention.launch_count} K1 "
+             f"launches staged their inputs")
+    return flash_attention.launch_count
 
 
 def timed(name: str, phase, *args):
@@ -494,9 +509,10 @@ def device_ms_per_call(fn, iters: int, exclude=()) -> tuple[float, list[str]]:
     of every kernel's and copy's device time in a torch.profiler run of
     ``iters`` calls, over the calls; ``exclude`` names record_function
     ranges, which the device timeline also lists and which are not work.
-    A run that recorded fewer than 0.9 of the device events of ``iters``
-    single-call runs is made again, up to three runs in all; fails if none
-    did."""
+    The events of one call are counted in the best of three single-call
+    runs (the profiler can drop every record of a short one); a run that
+    recorded fewer than 0.9 of ``iters`` calls' events is made again, up to
+    three runs in all; fails if none did."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -510,7 +526,7 @@ def device_ms_per_call(fn, iters: int, exclude=()) -> tuple[float, list[str]]:
 
     fn()
     torch.cuda.synchronize()
-    per_call = len(run(1))
+    per_call = max(len(run(1)) for _ in range(3))
     counts = []
     for _ in range(3):
         events = run(iters)
@@ -621,20 +637,24 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     dt = time.perf_counter() - t0
-    spills = []
+    spills, ignored = [], []
     for name in libs:
         entry = None
         for line in _build.build_log(name).splitlines():
             found = re.search(r"Compiling entry function '(\w+)'", line)
             if found:
                 entry = found.group(1)
-            if "registers" in line or "spill" in line or found:
+            if "registers" in line or "spill" in line or "warning" in line or found:
                 log(f"  ptxas {name}: {line.strip()}")
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if found and (int(found.group(1)) or int(found.group(2))):
                 spills.append(f"{entry}: {line.strip()}")
+            if "C7508" in line or "setmaxnreg ignored" in line:
+                ignored.append(f"{name}: {line.strip()}")
     if spills:
         fail("ptxas spills registers in " + "; ".join(spills))
+    if ignored:  # the forward's warp specialisation lost its register split
+        fail("ptxas ignored setmaxnreg: " + "; ".join(ignored))
     log(
         f"phase build: {len(libs)} kernel(s) in {dt:.2f} s, no spills: {', '.join(sorted(libs))}"
     )
@@ -741,7 +761,9 @@ def phase_kernels(exp_rate: float):
     rows = {}
     for i, (name, B, T, H, D) in enumerate(ATTENTION_SHAPES):
         q, k, v, iters = forward_inputs(i)
+        flash_attention.staged_count = 0
         err_o, err_lse = check_forward(name, q, k, v)
+        unstaged(f"flash_attention {name}")
         ms = time_ms(lambda: flash_attention(q, k, v), iters)
         plain_ms = time_ms(lambda: attention_reference(q, k, v), max(iters // 5, 10))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -755,7 +777,7 @@ def phase_kernels(exp_rate: float):
         )
         log(
             f"phase kernels: flash_attention {name} B={B} T=S={T} H={H} D={D} "
-            f"({copy_bytes(q, k, v)}-byte copies): "
+            f"(not staged): "
             f"O err {err_o:.3e} (<= {O_TOL}) lse err {err_lse:.3e} (<= {LSE_TOL}) | "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
@@ -769,12 +791,17 @@ def phase_kernels(exp_rate: float):
         )
         if copy_bytes(q, k, v) != width:
             fail(f"flash_attention {name}: {copy_bytes(q, k, v)}-byte copies, expected {width}")
+        staged = flash_attention.staged_count
         err_o, err_lse = check_forward(name, q, k, v)
+        # the inputs of the 4-byte copies go through one staged, aligned copy
+        staged = flash_attention.staged_count - staged
+        if staged != (width == 4):
+            fail(f"flash_attention {name}: {staged} staged launches, expected {int(width == 4)}")
         rows[name] = dict(max_abs_err=err_o, lse_err=err_lse)
         log(
             f"phase kernels: flash_attention {name} B={B} T={T} S={S} H={H} D={D} "
-            f"({width}-byte copies): O err {err_o:.3e} (<= {O_TOL}) lse err {err_lse:.3e} "
-            f"(<= {LSE_TOL})"
+            f"({width}-byte copies, {'staged' if staged else 'not staged'}): O err {err_o:.3e} "
+            f"(<= {O_TOL}) lse err {err_lse:.3e} (<= {LSE_TOL})"
         )
     return rows
 
@@ -860,6 +887,8 @@ def phase_device_times(rows: dict, bwd_rows: dict):
     after the timed phases: a profiled run can leave every later
     launch in the process costing more host time, and the B=8 sampling
     phases and the train step are host-bound."""
+    import torch.nn.functional as F
+
     from one2345_tpu_torch.ops import flash_attention as fa
 
     for i, (name, B, T, H, D) in enumerate(ATTENTION_SHAPES):
@@ -867,12 +896,21 @@ def phase_device_times(rows: dict, bwd_rows: dict):
         ms, recorded = device_ms_per_launch(
             lambda: fa.flash_attention(q, k, v), "flash_fwd_kernel", iters
         )
+        # the library yardstick on the same footing: SDPA's forward, device
+        # time per call (its event time is the row's library_ms)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms, names = device_ms_per_call(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), iters
+        )
         row = rows[name]
         row["device_ms"] = ms
+        row["library_device_ms"] = sdpa_ms
         log(
             f"phase device times: flash_attention {name} B={B} T=S={T} H={H} D={D}: "
             f"device {ms:.4f} ms/launch ({recorded} of {iters} launches recorded), "
-            f"{row['flops'] / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.2f} of the bound"
+            f"{row['flops'] / ms / 1e9:.1f} TFLOP/s, {row['bound_ms'] / ms:.2f} of the bound | "
+            f"sdpa forward device {sdpa_ms:.4f} ms/call (event {row['library_ms']:.4f} ms) | "
+            f"kernels: {'; '.join(names)}"
         )
     for i, (name, T, D) in enumerate(TRAIN_SHAPES):
         q, k, v, do, _, lse, dsum, iters = backward_inputs(i)
@@ -927,11 +965,11 @@ def phase_unet():
     with torch.inference_mode():
         ref = cpu_unet(x, t, ctx)
     cpu_s = time.perf_counter() - t0
-    flash_attention.launch_count = 0
+    flash_attention.launch_count = flash_attention.staged_count = 0
     with torch.inference_mode():
         out = gpu_unet(x.cuda(), t.cuda(), ctx.cuda())
     torch.cuda.synchronize()
-    launches = flash_attention.launch_count
+    launches = unstaged("unet")
     rel = float(torch.linalg.vector_norm(out.cpu() - ref) / torch.linalg.vector_norm(ref))
     if not torch.isfinite(out).all() or rel > UNET_TOL:
         fail(f"full-width UNet on the card vs CPU: relative L2 {rel} (<= {UNET_TOL})")
@@ -969,13 +1007,13 @@ def phase_grad():
         module = module.to_empty(device=device)
         module.load_state_dict(weights, strict=True)
         f = flash_attention
-        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
         with torch.autocast("cuda", dtype=torch.bfloat16, enabled=device == "cuda"):
             out = module(x.to(device), ctx.to(device))
         (out.float() * w.to(device)).sum().backward()
         if device == "cuda":
             torch.cuda.synchronize()
-            launches = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+            launches = (unstaged("grad"), f.dq_launch_count, f.dkv_launch_count)
         grads[device] = {
             k: None if p.grad is None else p.grad.float().cpu()
             for k, p in module.named_parameters()
@@ -1057,10 +1095,10 @@ def phase_sampling(stage, smi):
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
         timer = Timer(device="cuda")
-        flash_attention.launch_count = 0
+        flash_attention.launch_count = flash_attention.staged_count = 0
         s1, s2 = run_main_path(stage, image, timer)
         torch.cuda.synchronize()
-        launches = flash_attention.launch_count
+        launches = unstaged(f"sampling {run}")
         if tuple(s1.shape) != (8, 256, 256, 3) or tuple(s2.shape) != (8, 4, 256, 256, 3):
             fail(f"sampling shapes {tuple(s1.shape)} {tuple(s2.shape)}")
         for name, imgs in (("stage1", s1), ("stage2", s2)):
@@ -1288,14 +1326,14 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
         run = "cold"  # one run: phase 6 holds warm against cold
         out_dir = os.path.join(PIPELINE_OUT, run)
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launch_count = 0
+        flash_attention.launch_count = flash_attention.staged_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = pipe.run(image, out_dir=out_dir, skip_preprocess=True, seed=0,
                        output_format=".obj")
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        launches = flash_attention.launch_count
+        launches = unstaged("pipeline")
         if launches != expected:
             fail(f"pipeline {run}: flash_attention launched {launches} times, expected "
                  f"{expected}")
@@ -1651,14 +1689,14 @@ def cli_run(name: str, flags: list, img_path: str, raw, params, expected: int):
     out_dir = os.path.join(PIPELINE_OUT, "cli")
     try:
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launch_count = 0
+        flash_attention.launch_count = flash_attention.staged_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = cli.main(["--img_path", img_path, "--out_dir", out_dir, "--output_format", ".obj",
                         *flags], params=params)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        launches = flash_attention.launch_count
+        launches = unstaged(f"cli {' '.join(flags)}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         if launches != expected:
             fail(f"{name}: flash_attention launched {launches} times, expected {expected}")
@@ -1873,7 +1911,7 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
 
     # one full-width PLMS stage-1 call: views 0-3, 75 steps
     img = torch.as_tensor(input_image(), device="cuda") * 2.0 - 1.0
-    flash_attention.launch_count = 0
+    flash_attention.launch_count = flash_attention.staged_count = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = stage.sample_views(img[None].expand(4, *img.shape), STAGE1_DELTA_X[:4],
@@ -1881,7 +1919,7 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
                              noise_ids=[0, 1, 2, 3])
     torch.cuda.synchronize()
     plms_s = time.perf_counter() - t0
-    if flash_attention.launch_count != 16 * PLMS_STAGE1_EVALS:
+    if unstaged("plms stage1") != 16 * PLMS_STAGE1_EVALS:
         fail(f"plms stage1: {flash_attention.launch_count} K1 launches, expected "
              f"{16 * PLMS_STAGE1_EVALS}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
@@ -1932,7 +1970,8 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
         ref = cpu_unet(x, t, ctx)
     cpu_s = time.perf_counter() - t0
     del cpu_unet
-    flash_attention.launch_count = q.int8_matmul.launch_count = 0
+    flash_attention.launch_count = flash_attention.staged_count = 0
+    q.int8_matmul.launch_count = 0
     calls = []
     hooks = [m.register_forward_pre_hook(lambda mod, a: calls.append((mod, a[0].cpu())))
              for m in card_unet.modules() if isinstance(m, q.QConv2d)]
@@ -1944,7 +1983,7 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
     finally:
         for h in hooks:
             h.remove()
-    launches = (flash_attention.launch_count, q.int8_matmul.launch_count)
+    launches = (unstaged("int8 unet"), q.int8_matmul.launch_count)
     rel = float(torch.linalg.vector_norm(out.cpu() - ref) / torch.linalg.vector_norm(ref))
     qerr = float(torch.linalg.vector_norm(out - bf16_out) / torch.linalg.vector_norm(bf16_out))
     if not torch.isfinite(out).all() or rel > INT8_UNET_TOL:
@@ -2453,13 +2492,13 @@ def phase_train(stage, params, smi):
     warm = []
     for step in range(TRAIN_STEPS):
         torch.cuda.reset_peak_memory_stats()
-        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = trainer.train_step(batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+        counts = (unstaged("train"), f.dq_launch_count, f.dkv_launch_count)
         totals = [a + b for a, b in zip(totals, counts)]
         loss = float(loss)
         if counts != (32, 16, 16):
@@ -3228,13 +3267,13 @@ def phase_train_zero123(params, smi):
                 "--sample_every", str(Z123_SAMPLE_EVERY), "--sample_views", "4",
                 "--sample_steps", str(Z123_SAMPLE_STEPS), "--exp_dir", exp]
         torch.cuda.reset_peak_memory_stats()
-        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer = train_zero123.main(argv)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        counts = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+        counts = (unstaged("train_zero123"), f.dq_launch_count, f.dkv_launch_count)
         peak = torch.cuda.max_memory_allocated() / 2**30
         if counts != expected:
             fail(f"train_zero123 ({name}): K1/dq/dkv launches {counts}, expected {expected}")
@@ -3918,13 +3957,13 @@ def zero123_sharded_check(stage, params, mesh) -> tuple:
     losses, secs, totals = [], [], [0, 0, 0]
     for i in range(MC_STEPS):
         torch.cuda.reset_peak_memory_stats()
-        f.launch_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses.append(float(step(batch)))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        counts = (f.launch_count, f.dq_launch_count, f.dkv_launch_count)
+        counts = (unstaged("multicard (a)"), f.dq_launch_count, f.dkv_launch_count)
         if counts != (32, 16, 16):
             fail(f"multicard (a) step {i + 1}: K1/dq/dkv launches {counts}, expected (32, 16, 16)")
         totals = [a + b for a, b in zip(totals, counts)]
@@ -4041,14 +4080,14 @@ def sampler_sharded_check(stage, mesh) -> tuple:
     out, launches = {}, {}
     for name, m in (("unsharded", None), ("sharded", mesh)):
         stage.mesh = m
-        f.launch_count = 0
+        f.launch_count = f.staged_count = 0
         try:
             out[name] = [stage.stage1(image, 5, indices=idx, steps=MC_SAMPLE_STEPS)
                          for idx in ([0, 1, 2, 3], list(range(4, 12)))]
         finally:
             stage.mesh = None
         torch.cuda.synchronize()
-        launches[name] = f.launch_count
+        launches[name] = unstaged(f"multicard (c) {name}")
     errs = [float((a - b).abs().max()) for a, b in zip(out["sharded"], out["unsharded"])]
     if max(errs) > MC_IMG_TOL or launches["sharded"] != launches["unsharded"] \
             or launches["sharded"] % 16 or not launches["sharded"]:
@@ -4174,13 +4213,13 @@ def gloo_card_rank(rank: int, world: int, port: int, q, draws, steps: int, surfa
         stage = Zero123Stage(DiffusionConfig(), params=zparams, device="cuda:0", mesh=mesh)
         del zparams
         image = input_image(stage.config.image_size)
-        f.launch_count = 0
+        f.launch_count = f.staged_count = 0
         t0 = time.perf_counter()
         imgs = [stage.stage1(image, 5, indices=idx, steps=steps).cpu().numpy()
                 for idx in ([0, 1, 2, 3], list(range(4, 12)))]
         sample_s = time.perf_counter() - t0
         q.put((rank, part, "ok", ({k: float(v) for k, v in m.items()}, state, imgs,
-                                  f.launch_count, recon_s, sample_s)))
+                                  unstaged(f"gloo rank {rank}"), recon_s, sample_s)))
         del stage, state, imgs
         torch.cuda.empty_cache()
         part = "24c"
@@ -4462,7 +4501,7 @@ def twins_child(tf32: dict):
     twins["generative_e2e"] = (out, generative_e2e_gates(out, images, pairs),
                                time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return twins, (flash_attention.launch_count, flash_attention.dq_launch_count,
+    return twins, (unstaged("examples twins"), flash_attention.dq_launch_count,
                    flash_attention.dkv_launch_count)
 
 
@@ -4474,7 +4513,7 @@ def examples_in_process(runs: dict):
     from examples import torch_pipeline_wiring as tpw
     from one2345_tpu_torch.ops.flash_attention import flash_attention
 
-    flash_attention.launch_count = 0
+    flash_attention.launch_count = flash_attention.staged_count = 0
     flash_attention.dq_launch_count = flash_attention.dkv_launch_count = 0
     t0 = time.perf_counter()
     ok = tpw.wiring_check(75.0, 256, device="cuda")
@@ -4490,7 +4529,7 @@ def examples_in_process(runs: dict):
     runs["diffusion_quality"] = time.perf_counter() - t0
     log(f"phase examples: diffusion_quality (bf16) metrics {json.dumps(out)}")
     check_gates("diffusion_quality", diffusion_quality_gates(out), out)
-    return (flash_attention.launch_count, flash_attention.dq_launch_count,
+    return (unstaged("examples"), flash_attention.dq_launch_count,
             flash_attention.dkv_launch_count)
 
 
@@ -4578,14 +4617,15 @@ class CountedRuns:
         self._run = run = runner.One2345Pipeline.run
 
         def counted(pipe, *a, **k):
-            flash_attention.launch_count = q.int8_matmul.launch_count = 0
+            flash_attention.launch_count = flash_attention.staged_count = 0
+            q.int8_matmul.launch_count = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = run(pipe, *a, **k)
             torch.cuda.synchronize()
             d = pipe.config.diffusion
             self.runs.append({
-                "sampler": d.sampler, "quant": d.unet.quant, "k1": flash_attention.launch_count,
+                "sampler": d.sampler, "quant": d.unet.quant, "k1": unstaged("runbook run"),
                 "int8": q.int8_matmul.launch_count, "s": time.perf_counter() - t0,
                 "qconv": sum(isinstance(m, q.QConv2d) for m in pipe.zero123.unet.modules())})
             return res
@@ -4796,11 +4836,11 @@ def surface_rank(rank: int, surface: dict, port: int) -> dict:
 
     t_start = time.perf_counter()
     out_dir = os.path.join(SURFACE_OUT, "gloo_cli", f"rank{rank}")
-    f.launch_count = 0
+    f.launch_count = f.staged_count = 0
     t0 = time.perf_counter()
     res = cli.main(["--img_path", surface["img"], "--params", surface["params"], "--sampler",
                     "dpmpp", "--out_dir", out_dir, "--seed", "0"], device="cuda:0")
-    cli_s, cli_k1 = time.perf_counter() - t0, f.launch_count
+    cli_s, cli_k1 = time.perf_counter() - t0, unstaged(f"surface rank {rank} cli")
     out = {"cli_s": cli_s, "cli_k1": cli_k1, "stage1": res.stage1_images.float().cpu().numpy(),
            "stage2": res.stage2_images.float().cpu().numpy(), "vertices": res.vertices,
            "faces": res.faces, "elevation": res.elevation, "wrote": os.path.isdir(out_dir)}
@@ -4808,10 +4848,11 @@ def surface_rank(rank: int, surface: dict, port: int) -> dict:
     cfg = cli.apply_fast_modes(PipelineConfig(), sampler="dpmpp")
     service = One2345Service(One2345Pipeline(cfg, checkpoint.restore(surface["params"]),
                                              device="cuda:0"))
-    f.launch_count = 0
+    f.launch_count = f.staged_count = 0
     if rank != 0:
         server.serve(service, device="cuda:0")  # follows rank 0 until it stops
-        return dict(out, served_k1=f.launch_count, total_s=time.perf_counter() - t_start)
+        return dict(out, served_k1=unstaged(f"surface rank {rank} server"),
+                    total_s=time.perf_counter() - t_start)
     with open(surface["img"], "rb") as fh:
         b64 = base64.b64encode(fh.read()).decode()
     answers, times = [], []
@@ -4847,7 +4888,7 @@ def surface_rank(rank: int, surface: dict, port: int) -> dict:
     except KeyboardInterrupt:
         pass
     thread.join(timeout=60)
-    return dict(out, served_k1=f.launch_count, answers=answers, request_s=times,
+    return dict(out, served_k1=unstaged("surface rank 0 server"), answers=answers, request_s=times,
                 total_s=time.perf_counter() - t_start)
 
 
@@ -4934,12 +4975,12 @@ def phase_surface_examples(surface: dict, smi):
     expected = 16 * (76 + 49 + 76 + 49)
     secs = {}
     walk = os.path.join(SURFACE_OUT, "walkthrough")
-    flash_attention.launch_count = 0
+    flash_attention.launch_count = flash_attention.staged_count = 0
     t0 = time.perf_counter()
     summary = torch_walkthrough.main(["--img", surface["img"], "--out", walk, "--params",
                                       surface["params"]])
     secs["walkthrough"] = time.perf_counter() - t0
-    k1 = flash_attention.launch_count
+    k1 = unstaged("walkthrough")
     verts, faces, _ = load_ply(os.path.join(walk, "6_mesh.ply"))
     shapes = [read_png(os.path.join(walk, n)).shape for n in torch_walkthrough.ARTIFACTS[:3]]
     if k1 != expected or sorted(os.listdir(walk)) != sorted(torch_walkthrough.ARTIFACTS) or \
@@ -4948,12 +4989,12 @@ def phase_surface_examples(surface: dict, smi):
         fail(f"surface (d): walkthrough K1 {k1}, files {sorted(os.listdir(walk))}, summary "
              f"{summary}, PNG shapes {shapes}")
     demo = os.path.join(SURFACE_OUT, "demo")
-    flash_attention.launch_count = 0
+    flash_attention.launch_count = flash_attention.staged_count = 0
     t0 = time.perf_counter()
     res = torch_demo.main(["--img_path", surface["img"], "--out_dir", demo, "--params",
                            surface["params"]])
     secs["demo"] = time.perf_counter() - t0
-    k1 = flash_attention.launch_count
+    k1 = unstaged("demo")
     v, fc, _ = load_ply(os.path.join(demo, "mesh.ply"))
     n_png = sum(name.endswith(".png") for _, _, fs in os.walk(demo) for name in fs)
     if k1 != expected or not np.array_equal(v, res.vertices.astype(np.float32)) or \
@@ -5059,6 +5100,7 @@ def main() -> int:
         "bound_by": json_bound_by(head["bound_by"]),
         "bound_terms": head["bound_terms"],
         "library_ms": head["library_ms"],
+        "library_device_ms": head["library_device_ms"],
     }]
     for kernel, line, n, n_sh in (("dq", 71, dq_launches, sharded_launches[1]),
                                   ("dkv", 99, dkv_launches, sharded_launches[2])):

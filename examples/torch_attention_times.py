@@ -13,8 +13,12 @@ kernel it prints the wrapper's time by CUDA events, the kernel's device
 time per launch from torch.profiler and the wrapper's host time per call
 (the host clock over calls that are not waited for) before any profiled
 run and after all of them, then one JSON line of these and the card's name
-and power limit.  Inputs are bf16 N(0, 1) from a seeded generator
-(chip_smoke.forward_inputs, backward_inputs).  Needs one card.
+and power limit.  For the forward each shape also gets its bound
+(chip_smoke.kernel_bound) and the same three times of PyTorch's
+scaled_dot_product_attention on the same inputs (the library yardstick;
+its device time is per call, over all its kernels).  Inputs are bf16 N(0,
+1) from a seeded generator (chip_smoke.forward_inputs, backward_inputs).
+Needs one card.
 """
 
 from __future__ import annotations
@@ -68,8 +72,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return ms
 
-    # (label, call, kernel name, launches per timing) of every timed case
-    cases = []
+    # (label, call, kernel name or None for a library call, launches per
+    # timing) of every timed case, and the forward's bounds by label
+    cases, bounds = [], {}
     if args.backward:
         for i, (name, T, D) in enumerate(cs.TRAIN_SHAPES):
             q, k, v, do, _, lse, dsum, iters = cs.backward_inputs(i)
@@ -78,10 +83,20 @@ def main() -> int:
                 call = (lambda fn=fn, x=(q, k, v, do, lse, dsum): fn(*x))
                 cases.append((f"{kernel} {label}", call, f"flash_bwd_{kernel}_kernel", iters))
     else:
+        import torch.nn.functional as F
+
+        _, exp_rate = cs.phase_device()
         for i, (name, B, T, H, D) in enumerate(cs.ATTENTION_SHAPES):
             q, k, v, iters = cs.forward_inputs(i)
+            label = f"{name} B={B} T=S={T} H={H} D={D}"
             call = (lambda x=(q, k, v): fa.flash_attention(*x))
-            cases.append((f"{name} B={B} T=S={T} H={H} D={D}", call, "flash_fwd_kernel", iters))
+            cases.append((label, call, "flash_fwd_kernel", iters))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = (lambda x=(qt, kt, vt): F.scaled_dot_product_attention(*x))
+            cases.append((f"sdpa {label}", sdpa, None, iters))
+            flops = 4.0 * B * H * T * T * D
+            nbytes = 4.0 * q.numel() * q.element_size() + B * H * T * 4
+            bounds[label] = cs.kernel_bound(flops, nbytes, B * H * T * T, exp_rate)[:2]
 
     out = {}
     # host-clock timings of every case before any profiled run, and again
@@ -89,13 +104,22 @@ def main() -> int:
     for label, call, _, iters in cases:
         out[label] = {"ms": cs.time_ms(call, iters), "host_ms": host_ms(call, iters)}
     for label, call, kernel, iters in cases:
-        out[label]["device_ms"], _ = cs.device_ms_per_launch(call, kernel, iters)
+        if kernel is None:  # a library call: every kernel it launches
+            out[label]["device_ms"], _ = cs.device_ms_per_call(call, iters)
+        else:
+            out[label]["device_ms"], _ = cs.device_ms_per_launch(call, kernel, iters)
     for label, call, _, iters in cases:
         row = out[label]
         row["host_ms_after_profiler"] = host_ms(call, iters)
+        bound = ""
+        if label in bounds:
+            row["bound_ms"], row["bound_by"] = bounds[label]
+            bound = (f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                     f"{row['bound_ms'] / row['device_ms']:.2f} of it")
         print(
             f"{label}: {row['ms']:.4f} ms (CUDA events), "
-            f"{row['device_ms']:.4f} ms device per launch, {row['host_ms']:.4f} ms host per "
+            f"{row['device_ms']:.4f} ms device per {'call' if label.startswith('sdpa') else 'launch'}"
+            f"{bound}, {row['host_ms']:.4f} ms host per "
             f"call ({row['host_ms_after_profiler']:.4f} after the profiler) | {repo} | {smi}",
             flush=True,
         )

@@ -7,11 +7,12 @@ as the reference notebook shows them (preprocess -> stage 1 -> elevation
 -> stage 2 -> reconstruction):
 
     python examples/torch_walkthrough.py [--img input.png] [--out exp/walkthrough] \
-        [--params params.pt]
+        [--params params.pt] [--tiny] [--device cpu]
 
-``--tiny`` runs toy model sizes on the CPU in seconds; otherwise the
-walkthrough runs on the card.  ``--params`` names a ``core.checkpoint``
-file of the port (``utils/convert_cli.py`` or
+``--tiny`` runs toy model sizes without SAM, as the JAX example's
+``--tiny`` does; ``--device`` picks the device (the card by default;
+``--tiny --device cpu`` runs on the CPU in seconds).  ``--params`` names
+a ``core.checkpoint`` file of the port (``utils/convert_cli.py`` or
 ``One2345Pipeline.save_params`` writes one).  Differences from the JAX
 example: noise comes from the runner's integer phase seeds
 (``runner.phase_seeds(0)``), so the steps give what ``run(seed=0)`` gives;
@@ -79,7 +80,8 @@ def main(argv=None):
     p.add_argument("--img", default=None, help="input photo (default: synthetic)")
     p.add_argument("--out", default="exp/walkthrough")
     p.add_argument("--tiny", action="store_true",
-                   help="toy model sizes on the CPU: seconds, for CI and smoke runs")
+                   help="toy model sizes without SAM: seconds, for CI and smoke runs")
+    p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--params", default=None, help="core.checkpoint file of the port")
     args = p.parse_args(argv)
 
@@ -102,8 +104,7 @@ def main(argv=None):
         from one2345_tpu_torch.core import checkpoint
 
         params = checkpoint.restore(args.params)
-    pipe = One2345Pipeline(cfg, params, use_sam=not args.tiny,
-                           device="cpu" if args.tiny else None)
+    pipe = One2345Pipeline(cfg, params, use_sam=not args.tiny, device=args.device)
 
     # ------------------------------------------------------- 0. input image
     raw = to_rgba(read_png(args.img)) if args.img else synthetic_input()

@@ -16,385 +16,857 @@
 // - exp unit: one exp2 per score, B*H*T*S = 470 M, at 16 per clock per SM
 //   (CUDA C++ Programming Guide, throughput table, compute capability 9.0)
 //   x 132 SMs x 1.98 GHz = 4.2e12/s -> 112 us.
-// So at D=40 the exp unit, not the tensor cores, is the floor, and every
-// FP32 instruction spent per score competes with it for issue slots.
+// So at D=40 the exp unit is the floor and the tensor cores come next: a
+// kernel near the bound runs the products and the exps at the same time.
+//
+// What the previous design (cp.async ring, ldmatrix, mma.sync m16n8k16)
+// did instead, read from its SASS (PERF.md): mma.sync is synchronous in
+// the warp that issues it, so each warp ran a key tile's Q K^T (a run of
+// 48 HMMA with no exp beside it), waited on it for the row max, and only
+// then interleaved its exps with the P V HMMAs; with two warps per
+// scheduler little filled the Q K^T phase, and level 0 cost about the sum
+// of the two floors.
 //
 // Design:
-// - one block per (query tile, batch*head), no atomics.  Each warp owns
-//   16*MT query rows; its Q fragments stay in registers for the whole key
-//   loop.  The 48 instance has 4 warps of 32 rows (MT=2, 128-row tiles),
-//   the 80 instance 8 warps of 16 rows (128-row tiles), the 160 instance 4
-//   warps of 16 rows (64-row tiles: there T <= 64).  With MT=2 every K or V
-//   fragment read from shared memory feeds two row tiles, which halves the
-//   ldmatrix traffic per product (at 16 rows per warp, 8 warps share each
-//   staged tile and read it 8 times);
-// - K and V stream through a ring of STAGES 64-key tiles in shared memory
-//   (3 at DP=48, else 2), filled with cp.async: tile t + STAGES - 1 is
-//   issued before tile t's products, so the copies run under the mma and
-//   exp work; one __syncthreads per tile.  Tiles above 48 KB sit in
-//   dynamic shared memory.  Copies move 16 bytes (cp.async.cg) when D is
-//   a multiple of 8 and every row starts 16-byte aligned (all main-path
-//   calls), else 4 bytes (cp.async.ca); the wrapper picks.  Rows >= T or
-//   S and the pad columns D..DP are zero-filled by the copy itself.  The
-//   ring and its copies live in flash_common.cuh, shared with the
-//   backward kernels;
-// - V stays row-major in shared memory; the P.V B fragments come from
-//   ldmatrix.x4.trans, the Q and K fragments from ldmatrix.x4, one
-//   instruction per two mma.sync m16n8k16 (bf16 in, f32 accumulate) per
-//   row tile.  The P tile never leaves registers: the f32 score fragment
-//   of Q K^T is re-packed as the A fragment of P V;
-// - softmax at the exp floor: the running max m stays in raw score units
-//   and p = 2^(s*c - m*c), c = log2(e)/sqrt(D), is one FFMA and one
-//   ex2.approx per score; besides them a score costs one max, one add to
-//   the row sum, half a bf16x2 pack and the rescale of O (DP/64 of a
-//   multiply).  Keys >= S are masked only in the last tile, and only when
-//   S % 64 != 0 (a separate instance of the tile body): the main-path
-//   shapes never mask;
-// - D is padded with zeros to DP (48, 80 or 160); tensors are read and
-//   written through their [B, T, H, D] strides, so ragged T and S, and
-//   views, need no copy and no fallback.
-// Row pitch is DP + 8 bf16 (112, 176 or 336 bytes: 7, 11 or 21 units of 16
-// bytes, all odd), so the 8 rows of one ldmatrix phase fall on 8 distinct
-// 16-byte bank groups.
-// Measured on an H100 (PERF.md): dropping the row-sum add (ones in
-// a pad column of V) and most rescales (a max that moves only by > 2^8)
-// made level 0 slower, so the FP32 work per score is not this kernel's
-// limit; neither is kept.
-// Not used here: wgmma, TMA and warp specialisation.  At D=40 the floor is
-// the exp unit (112 us), not the tensor cores (76 us); mma.sync at about
-// two thirds of wgmma's rate does level 0's 75 GFLOP in about the exp
-// floor's time, and wgmma's swizzled layouts want 128-byte rows, which
-// D=48 (96 bytes) does not fill.
+// - warp specialisation: warpgroup 0 is the producer (setmaxnreg down to
+//   24 registers; one thread issues every copy), the others are consumers
+//   of 64 query rows each (setmaxnreg up): three at DP = 48 (192-row query
+//   tiles, 160 registers), two at 80 (128 rows, 240), one at 160 (64 rows,
+//   232; two blocks per SM);
+// - the producer moves every operand with TMA (cp.async.bulk.tensor, 4-D
+//   tensor maps over the [B, T|S, H, D] strides, 128-byte swizzle; the host
+//   encodes the maps per call with cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint): Q into two slots (the next query tile's Q
+//   loads under this one), K and V through rings of STAGES slots, each slot
+//   guarded by a full and an empty mbarrier (the full one counts TMA bytes,
+//   the empty one an arrival per consumer warpgroup).  A box brings 64
+//   columns, or D rounded up to 8 when one 64-column chunk holds the row,
+//   and the tile's rows, or the sequence's rounded up to 8 when it is
+//   shorter: the TMA unit spends its time on the box, filled or not, so
+//   the narrower boxes made every main-path shape faster (PERF.md).  Rows
+//   past T or S inside a box are zero-filled; shared memory is zeroed once,
+//   so pad columns D .. DP stay zero and V rows past a short S are finite;
+// - S = Q K^T is wgmma m64nBNk16 with both operands in swizzled shared
+//   memory (K-major); O += P V is wgmma m64nDVk16 with P in registers (the
+//   score accumulator re-packed to bf16) and V from shared memory as a
+//   transposed (MN-major) operand, DV = D rounded up to 8 (40 at level 0);
+//   descriptors are built once and stepped by adding offsets;
+// - overlap: a consumer issues tile j's Q K^T and tile j-1's P V together
+//   and waits only for the first (wgmma.wait_group 1), so tile j's softmax
+//   runs on the FP32 and exp units while P V runs on the tensor cores; the
+//   consumer warpgroups take turns issuing their products (named barriers
+//   1 .. 3, in a ring), so one's softmax runs under another's products;
+// - bit for bit the previous kernel: the softmax moves in steps of 64 keys
+//   (two per 128-key tile, each with its own max, rescale and P V, the
+//   second P V issued under the second step's exps) and sums p in the
+//   previous order; mma.sync and wgmma accumulate alike, so O and lse equal
+//   the mma.sync kernel's at every shape, and the sampled images, meshes
+//   and every check downstream of them are unchanged (a 128-key step is
+//   faster and rounds otherwise: PERF.md);
+// - persistent blocks: the blocks that fit on the SMs walk the query tiles
+//   (tile = blockIdx.x, += gridDim.x; consecutive tiles share K and V in
+//   L2), so the producer loads the next tile's Q, K and V under the
+//   current tile's last products and epilogue;
+// - softmax at the exp floor (as before): the running max stays in raw
+//   score units and p = 2^(s*c - m*c), c = log2(e)/sqrt(D), is one FFMA and
+//   one ex2.approx per score; O is rescaled once per step just before its
+//   P V is issued; keys >= S are masked only in a ragged last tile;
+// - O leaves registers as bf16 pairs through its [B, T, H, D] strides, lse
+//   as f32 [B, H, T].
+// Inputs a tensor map cannot describe (a base not 16-byte aligned, a
+// stride not a multiple of 8 elements, D % 8 != 0) are staged into an
+// aligned copy by the wrapper (ops/flash_attention.py) before the launch.
+// Measured against that design (PERF.md): level 0 runs the exp unit at
+// under half its rate; with no copies at all the consumers alone take most
+// of the time, so what is left is the softmax's own latency between the
+// turns, not the copies or the tensor cores.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "flash_common.cuh"
 
 namespace {
 
-using flash::copy_tile;
-using flash::cp_async_commit;
-using flash::cp_async_wait;
 using flash::ex2;
-using flash::ldmatrix_x4;
-using flash::ldmatrix_x4_trans;
-using flash::mma_16816;
 using flash::pack_bf16;
+using flash::smem_addr;
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBlockKV = 64;  // keys per shared-memory tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kChunkCols = 64;     // bf16 columns of one 128-byte swizzled row
+constexpr int kRowBytes = 128;
 
-// (batch, token, head) element strides of q, k, v and o
-struct Strides {
-  long long v[12];
-};
-
-constexpr int kMinBlocks = 2;  // blocks per SM the register count must allow
-
-// Shape of each instance: 16*MT query rows per warp, WARPS warps, STAGES
-// K/V tiles in the ring
+// Shape of each instance: DP the padded head width of Q K^T (a multiple of
+// 16), BN keys per K/V tile, CONSUMERS warpgroups of 64 query rows, STAGES
+// slots in each of the K and V rings
 template <int DP>
 struct Config;
 template <>
 struct Config<48> {
-  static constexpr int kMT = 2, kWarps = 4, kStages = 3;
+  static constexpr int kBlockN = 128, kConsumers = 3, kStages = 3;
 };
 template <>
 struct Config<80> {
-  static constexpr int kMT = 1, kWarps = 8, kStages = 2;
+  static constexpr int kBlockN = 128, kConsumers = 2, kStages = 2;
 };
 template <>
 struct Config<160> {
-  static constexpr int kMT = 1, kWarps = 4, kStages = 2;
+  static constexpr int kBlockN = 64, kConsumers = 1, kStages = 1;
 };
 
 template <int DP>
-__host__ __device__ constexpr int block_rows() {
-  return 16 * Config<DP>::kMT * Config<DP>::kWarps;
+struct Shape {
+  static constexpr int kBlockN = Config<DP>::kBlockN;
+  static constexpr int kConsumers = Config<DP>::kConsumers;
+  static constexpr int kStages = Config<DP>::kStages;
+  static constexpr int kBlockM = 64 * kConsumers;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kChunks = (DP + kChunkCols - 1) / kChunkCols;
+  static constexpr int kQBytes = kChunks * kBlockM * kRowBytes;
+  static constexpr int kKVBytes = kChunks * kBlockN * kRowBytes;  // one K or V tile
+  // blocks per SM the entry register count must allow (65536 / threads /
+  // blocks: 128 at 512 or 256 threads, 168 at 384), and the registers
+  // setmaxnreg leaves the producer and gives a consumer thread: together
+  // they must fit the block's entry allocation (168 x 384 = 24 x 128 + 240
+  // x 256; 128 x 512 >= 24 x 128 + 160 x 384; 128 x 256 = 24 x 128 + 232 x
+  // 128), or the consumers' setmaxnreg.inc would wait forever
+  static constexpr int kMinBlocks = kConsumers == 1 ? 2 : 1;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : kConsumers == 2 ? 240 : 232;
+  static constexpr int kEntryRegs = (65536 / (kThreads * kMinBlocks)) / 8 * 8;
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= kEntryRegs * kThreads,
+                "setmaxnreg asks for more registers than the block holds");
+  // two Q slots (the next query tile loads under this one), the K ring,
+  // the V ring, then the mbarriers; 1 KB to align the base
+  static constexpr int kBarrierOffset = 2 * kQBytes + 2 * kStages * kKVBytes;
+  static constexpr int kSmemBytes = kBarrierOffset + (4 + 4 * kStages) * 8 + 1024;
+};
+
+// ---------------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
 }
 
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// ------------------------------------------------------------------- TMA
+
+// one box of a 4-D tensor map (columns, rows, head, batch) into shared
+// memory, completing `bytes` on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(col), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ----------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand (layout
+// type 1): start address, leading and stride byte offsets, all >> 4.  For a
+// K-major operand (rows of 128 bytes along K) the stride offset is the 8-row
+// group's 1024 bytes and the leading offset is unused; for an MN-major one
+// (V: rows of 128 bytes along N, one row per key) the stride offset is the
+// 8-key group's 1024 bytes and the leading offset the distance between
+// 64-column chunks.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lead_bytes >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence, commit and wait instructions
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+  }
+}
+
+#define D8(i)                                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A B^T, m64nNk16, A and B from shared memory (both K-major);
+// scale_d 0 overwrites d
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d);
+
+// d += A B, m64nNk16, A a 64x16 bf16 fragment in registers (four words per
+// thread, the mma.sync m16n8k16 A layout per warp), B from shared memory
+// MN-major (transposed)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<40>(float (&d)[20], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef D8
+
+// Rows of a TMA box: the tile's rows, or fewer when the whole sequence is
+// shorter (rounded up to 8); columns: 64, or D rounded up to 8 when one
+// chunk holds the row.  The host encodes the maps with the same counts.
+__host__ __device__ constexpr int box_rows(int tile_rows, int length) {
+  return tile_rows < (length + 7) / 8 * 8 ? tile_rows : (length + 7) / 8 * 8;
+}
+
+__host__ __device__ constexpr int box_cols(int chunks, int D) {
+  return chunks == 1 ? (D + 7) / 8 * 8 : kChunkCols;
+}
+
+// ------------------------------------------------------- consumer pieces
+
+// S = Q K^T over DP / 16 k-steps: chunk k / 4 of both operands, 32 bytes
+// further along the swizzled row per step.  q_desc and k_desc describe the
+// tiles' first rows; an offset below 256 KB adds to the start-address field
 template <int DP>
-__host__ __device__ constexpr int smem_bytes() {
-  return (block_rows<DP>() + 2 * Config<DP>::kStages * kBlockKV) * (DP + 8) *
-         static_cast<int>(sizeof(bf16));
+__device__ __forceinline__ void issue_qk(float (&s)[Shape<DP>::kBlockN / 2], uint64_t q_desc,
+                                         uint64_t k_desc) {
+  constexpr int BM = Shape<DP>::kBlockM, BN = Shape<DP>::kBlockN;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < DP / 16; ++k) {
+    const uint64_t step = (k % 4) * 2;  // 32 bytes
+    wgmma_ss<BN>(s, q_desc + (k / 4) * (BM * kRowBytes / 16) + step,
+                 k_desc + (k / 4) * (BN * kRowBytes / 16) + step, k > 0);
+  }
+  wgmma_commit();
+  fence_regs(s);
 }
 
-// One 64-key tile for a warp's MT row tiles: S = Q K^T, the online-softmax
-// update of (m, l, acc), and acc += P V.  kMask masks keys >= S.
-template <int DP, int MT, bool kMask>
-__device__ __forceinline__ void attend_tile(const bf16* ks, const bf16* vs,
-                                            const uint32_t (&qa)[MT][DP / 16][4],
-                                            float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
-                                            float (&l)[MT][2], int kv0, int S, float c) {
-  constexpr int P = DP + 8;
-  constexpr int KT = DP / 16;        // k-steps of Q K^T
-  constexpr int NT = kBlockKV / 8;  // 8-key column tiles of S
-  constexpr int ND = DP / 8;         // 8-wide column tiles of O
-  static_assert(ND % 2 == 0, "V fragments come in pairs of 8-column tiles");
-  const int lane = threadIdx.x & 31;
-  const int tg = lane & 3;
+// O += P V over the 64 keys of step H of a key tile: k-steps 4 H .. 4 H + 3
+// of 16 keys (2048 bytes of V each)
+template <int H, int DP, int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2], uint32_t (&p)[Shape<DP>::kBlockN / 16][4],
+                                         uint64_t v_desc) {
+  fence_regs(o);
+  fence_regs(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 4 * H; kk < 4 * H + 4; ++kk) {
+    wgmma_rs<DV>(o, p[kk], v_desc + kk * (16 * kRowBytes / 16));
+  }
+  wgmma_commit();
+  fence_regs(o);
+  fence_regs(p);
+}
 
-  float s[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+// max of the 2 N values of one accumulator row held from n-tile I on:
+// s[4 i + R] and s[4 i + R + 1] for I <= i < I + N, R = 0 (row g) or 2 (row
+// g + 8), as a tree (a max is exact in any order)
+template <int N, int I, int R, int M>
+__device__ __forceinline__ float tree_max(const float (&s)[M]) {
+  if constexpr (N == 1) {
+    return fmaxf(s[4 * I + R], s[4 * I + R + 1]);
+  } else {
+    return fmaxf(tree_max<N / 2, I, R>(s), tree_max<N / 2, I + N / 2, R>(s));
   }
-  // S = Q K^T: one ldmatrix gives the B fragments of key tiles nt and nt+1
-  // (blocks: keys 0-7 | 8-15 of the pair x columns k0 | k0+8)
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, ks + (nt * 8 + (lane & 7) + ((lane >> 4) << 3)) * P + kt * 16 + (lane & 8));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_16816(s[mt][nt], qa[mt][kt], kf[0], kf[1]);
-        mma_16816(s[mt][nt + 1], qa[mt][kt], kf[2], kf[3]);
-      }
-    }
-  }
+}
+
+// The online softmax of the 64 keys of step H of a score tile, in place:
+// they become p = 2^(s c - m c) with the new running max m (raw score
+// units); `scale` gets the factor 2^((m_old - m) c) that O must take before
+// this step's P V, and l (each thread's partial row sums) is rescaled and
+// grows by the step's p, one n-tile after another.  The steps of 64 keys,
+// the order of the sums and the FFMA + ex2 per score are those of the
+// mma.sync kernel this one replaced, whose outputs it reproduces bit for
+// bit.  kMask masks keys >= S (a ragged last tile).  Accumulator layout:
+// n-tile i holds row g in s[4i], s[4i + 1] and row g + 8 in s[4i + 2],
+// s[4i + 3], columns 8i + 2 (lane % 4) and + 1.
+template <int H, int BN, bool kMask>
+__device__ __forceinline__ void softmax_step(float (&s)[BN / 2], float (&m)[2], float (&l)[2],
+                                             float (&scale)[2], int kv0, int S, float c) {
+  constexpr int I0 = 8 * H;  // the step's first n-tile
+  const int tg = threadIdx.x & 3;
   if (kMask) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int i = I0; i < I0 + 8; ++i) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        if (kv0 + nt * 8 + tg * 2 + j >= S) {
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) s[mt][nt][j] = s[mt][nt][2 + j] = -CUDART_INF_F;
-        }
+        if (kv0 + i * 8 + tg * 2 + j >= S) s[4 * i + j] = s[4 * i + 2 + j] = -CUDART_INF_F;
       }
     }
   }
-
-  // online softmax, max in raw score units: p = 2^(s c - m c); P re-packed
-  // as bf16 A fragments of 16 keys
-  uint32_t pa[MT][NT / 2][4];
+  float mx0 = fmaxf(m[0], tree_max<8, I0, 0>(s));
+  float mx1 = fmaxf(m[1], tree_max<8, I0, 2>(s));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // the first step holds a key < S, so mx is finite; 2^(-inf) = 0 on the
+  // first; a later step of a ragged tile may hold none (p = 0, scale = 1)
+  scale[0] = ex2((m[0] - mx0) * c);
+  scale[1] = ex2((m[1] - mx1) * c);
+  m[0] = mx0;
+  m[1] = mx1;
+  l[0] *= scale[0];
+  l[1] *= scale[1];
+  const float mc0 = mx0 * c, mc1 = mx1 * c;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float mx0 = m[mt][0], mx1 = m[mt][1];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[mt][nt][0], s[mt][nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[mt][nt][2], s[mt][nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile holds a key < S, so mx is finite; 2^(-inf) = 0 on the first
-    const float alpha0 = ex2((m[mt][0] - mx0) * c);
-    const float alpha1 = ex2((m[mt][1] - mx1) * c);
-    m[mt][0] = mx0;
-    m[mt][1] = mx1;
-    l[mt][0] *= alpha0;
-    l[mt][1] *= alpha1;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[mt][nd][0] *= alpha0;
-      acc[mt][nd][1] *= alpha0;
-      acc[mt][nd][2] *= alpha1;
-      acc[mt][nd][3] *= alpha1;
-    }
-    const float mc0 = mx0 * c, mc1 = mx1 * c;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float p0 = ex2(fmaf(s[mt][nt][0], c, -mc0));
-      const float p1 = ex2(fmaf(s[mt][nt][1], c, -mc0));
-      const float p2 = ex2(fmaf(s[mt][nt][2], c, -mc1));
-      const float p3 = ex2(fmaf(s[mt][nt][3], c, -mc1));
-      l[mt][0] += p0 + p1;
-      l[mt][1] += p2 + p3;
-      pa[mt][nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pa[mt][nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-  }
-
-  // O += P V: one ldmatrix.trans gives the B fragments of column tiles nd
-  // and nd+1 (blocks: keys 0-7 | 8-15 x columns nd | nd+1)
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-#pragma unroll
-    for (int nd = 0; nd < ND; nd += 2) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, vs + (kk * 16 + (lane & 15)) * P + nd * 8 + ((lane >> 4) << 3));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_16816(acc[mt][nd], pa[mt][kk], vf[0], vf[1]);
-        mma_16816(acc[mt][nd + 1], pa[mt][kk], vf[2], vf[3]);
-      }
-    }
+  for (int i = I0; i < I0 + 8; ++i) {
+    s[4 * i] = ex2(fmaf(s[4 * i], c, -mc0));
+    s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], c, -mc0));
+    s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], c, -mc1));
+    s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], c, -mc1));
+    l[0] += s[4 * i] + s[4 * i + 1];
+    l[1] += s[4 * i + 2] + s[4 * i + 3];
   }
 }
 
-template <int DP, int VEC>
-__global__ void __launch_bounds__(Config<DP>::kWarps * 32, kMinBlocks)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int T, int S, int D, Strides st,
+// step H's p as the A fragments of P V: k-step kk (keys 16 kk .. 16 kk +
+// 15) is n-tiles 2 kk and 2 kk + 1 of the score accumulator
+template <int H, int BN>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BN / 16][4], const float (&s)[BN / 2]) {
+#pragma unroll
+  for (int kk = 4 * H; kk < 4 * H + 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+  }
+}
+
+template <int DV>
+__device__ __forceinline__ void rescale(float (&o)[DV / 2], const float (&scale)[2]) {
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+    o[4 * i] *= scale[0];
+    o[4 * i + 1] *= scale[0];
+    o[4 * i + 2] *= scale[1];
+    o[4 * i + 3] *= scale[1];
+  }
+}
+
+// The consumer warpgroups take turns issuing products, in a ring: warpgroup
+// w waits on barrier 1 + w and hands the turn to the next by arriving at
+// its barrier (256 threads: the waiting warpgroup and the arriving one)
+template <int CONSUMERS>
+__device__ __forceinline__ void turn_wait(int w) {
+  if (CONSUMERS > 1) asm volatile("bar.sync %0, 256;\n" :: "r"(1 + w) : "memory");
+}
+
+template <int CONSUMERS>
+__device__ __forceinline__ void turn_pass(int w) {
+  if (CONSUMERS > 1) {
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + (w + 1) % CONSUMERS) : "memory");
+  }
+}
+
+// (batch, token, head) element strides of o
+struct OutStrides {
+  long long b, t, h;
+};
+
+template <int DP, int DV>
+__global__ void __launch_bounds__(Shape<DP>::kThreads, Shape<DP>::kMinBlocks)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                 float* __restrict__ lse, OutStrides so, int B, int H, int T, int S, int D,
                  float c, float scale) {
-  constexpr int MT = Config<DP>::kMT;
-  constexpr int STAGES = Config<DP>::kStages;
-  constexpr int kThreads = Config<DP>::kWarps * 32;
-  constexpr int BQ = block_rows<DP>();
-  constexpr int P = DP + 8;
-  constexpr int KT = DP / 16;
-  constexpr int ND = DP / 8;
-  constexpr int kTile = kBlockKV * P;  // elements of one K or V tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* kvs = qs + BQ * P;  // stage i: K at kvs + 2 i kTile, V after it
+  using Sh = Shape<DP>;
+  constexpr int BM = Sh::kBlockM, BN = Sh::kBlockN, STAGES = Sh::kStages;
+  constexpr int CONSUMERS = Sh::kConsumers;
+  constexpr int STEPS = BN / 64;  // softmax steps of 64 keys per key tile
+  using Step0 = std::integral_constant<int, 0>;
+  using Step1 = std::integral_constant<int, STEPS - 1>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles want 1024-byte alignment
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sq = smem;                         // Q slot i at sq + i * kQBytes
+  unsigned char* sk = sq + 2 * Sh::kQBytes;         // K slot i at sk + i * kKVBytes
+  unsigned char* sv = sk + STAGES * Sh::kKVBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + Sh::kBarrierOffset);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 2;
+  uint64_t* k_full = bars + 4;
+  uint64_t* k_empty = k_full + STAGES;
+  uint64_t* v_full = k_empty + STAGES;
+  uint64_t* v_empty = v_full + STAGES;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int tg = lane & 3;   // thread within the group
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
-  const long long* sv = st.v;
-  const bf16* kb = k + b * sv[3] + h * sv[5];
-  const bf16* vb = v + b * sv[6] + h * sv[8];
-  const int n_tiles = (S + kBlockKV - 1) / kBlockKV;
-
-  // the K/V ring: one copy group per 64-key tile
-  auto issue = [&](int t, int slot) {
-    bf16* dst = kvs + slot * 2 * kTile;
-    copy_tile<DP, kBlockKV, kThreads, VEC>(dst, kb, sv[4], t * kBlockKV, S, D);
-    copy_tile<DP, kBlockKV, kThreads, VEC>(dst + kTile, vb, sv[7], t * kBlockKV, S, D);
-  };
-
-  copy_tile<DP, BQ, kThreads, VEC>(qs, q + b * sv[0] + h * sv[2], sv[1], q0, T, D);
-  cp_async_commit();
-  flash::ring_fill<STAGES>(n_tiles, issue);
-  cp_async_wait<STAGES - 1>();  // the Q group
+  // Boxes narrower or shorter than the tiles leave the rest of each tile as
+  // it was: zero Q, K and V once, so that the pad columns D .. DP stay zero
+  // and keys past S (P = 0) meet finite values in V
+  for (int i = threadIdx.x; i < Sh::kBarrierOffset / 16; i += Sh::kThreads) {
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, CONSUMERS);
+    }
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(k_empty + i, CONSUMERS);
+      mbar_init(v_full + i, 1);
+      mbar_init(v_empty + i, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int wrow = warp * 16 * MT;  // this warp's first row in the tile
-  // A fragments (blocks: rows 0-7 | 8-15 x columns k0 | k0+8)
-  uint32_t qa[MT][KT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      ldmatrix_x4(qa[mt][kt], qs + (wrow + mt * 16 + (lane & 15)) * P + kt * 16 + ((lane >> 4) << 3));
-    }
-  }
+  const int n_m = (T + BM - 1) / BM;
+  const int n_tiles = n_m * B * H;
+  const int n_kv = (S + BN - 1) / BN;
+  const int wg = threadIdx.x / 128;
 
-  float acc[MT][ND][4];
-  float m[MT][2], l[MT][2];
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(Sh::kProducerRegs));
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&map_q);
+      tma_prefetch_map(&map_k);
+      tma_prefetch_map(&map_v);
+      // bytes each box completes on its barrier
+      const int row_bytes = Sh::kChunks * box_cols(Sh::kChunks, D) * 2;
+      const uint32_t q_bytes = row_bytes * box_rows(BM, T);
+      const uint32_t kv_bytes = row_bytes * box_rows(BN, S);
+      int stage = 0, phase = 0, q_count = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++q_count) {
+        const int m_block = tile % n_m, bh = tile / n_m;
+        const int b = bh / H, h = bh - b * H;
+        const int qs = q_count & 1;  // Q slot; its round is q_count / 2
+        mbar_wait(q_empty + qs, ((q_count >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full + qs, q_bytes);
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[mt][nd][0] = acc[mt][nd][1] = acc[mt][nd][2] = acc[mt][nd][3] = 0.f;
-    }
-    m[mt][0] = m[mt][1] = -CUDART_INF_F;
-    l[mt][0] = l[mt][1] = 0.f;
-  }
-
-  const bool ragged = S % kBlockKV != 0;
-  auto body = [&](int t, int slot) {
-    const bf16* ks = kvs + slot * 2 * kTile;
-    if (ragged && t == n_tiles - 1) {
-      attend_tile<DP, MT, true>(ks, ks + kTile, qa, acc, m, l, t * kBlockKV, S, c);
-    } else {
-      attend_tile<DP, MT, false>(ks, ks + kTile, qa, acc, m, l, t * kBlockKV, S, c);
-    }
-  };
-  flash::ring_run<STAGES>(n_tiles, issue, body);
-
-  bf16* ob = o + b * sv[9] + h * sv[11];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float l0 = l[mt][0], l1 = l[mt][1];  // full row sums across the 4 threads of a group
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-    const int row0 = q0 + wrow + mt * 16 + g, row1 = row0 + 8;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int col = nd * 8 + tg * 2;
-      if (col < D) {
-        if (row0 < T) {
-          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * sv[10] + col) =
-              __floats2bfloat162_rn(acc[mt][nd][0] * inv0, acc[mt][nd][1] * inv0);
+        for (int ch = 0; ch < Sh::kChunks; ++ch) {
+          tma_load(sq + qs * Sh::kQBytes + ch * BM * kRowBytes, &map_q, q_full + qs,
+                   ch * kChunkCols, m_block * BM, h, b);
         }
-        if (row1 < T) {
-          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * sv[10] + col) =
-              __floats2bfloat162_rn(acc[mt][nd][2] * inv1, acc[mt][nd][3] * inv1);
+        for (int j = 0; j < n_kv; ++j) {
+          mbar_wait(k_empty + stage, phase ^ 1);
+          mbar_expect_tx(k_full + stage, kv_bytes);
+#pragma unroll
+          for (int ch = 0; ch < Sh::kChunks; ++ch) {
+            tma_load(sk + stage * Sh::kKVBytes + ch * BN * kRowBytes, &map_k, k_full + stage,
+                     ch * kChunkCols, j * BN, h, b);
+          }
+          mbar_wait(v_empty + stage, phase ^ 1);
+          mbar_expect_tx(v_full + stage, kv_bytes);
+#pragma unroll
+          for (int ch = 0; ch < Sh::kChunks; ++ch) {
+            tma_load(sv + stage * Sh::kKVBytes + ch * BN * kRowBytes, &map_v, v_full + stage,
+                     ch * kChunkCols, j * BN, h, b);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
-    if (tg == 0) {
-      float* lrow = lse + (long long)bh * T;
-      if (row0 < T) lrow[row0] = m[mt][0] * scale + logf(l0);
-      if (row1 < T) lrow[row1] = m[mt][1] * scale + logf(l1);
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(Sh::kConsumerRegs));
+    const int w = wg - 1;                    // consumer index
+    const int lane = threadIdx.x & 31;
+    const int row_in_tile = w * 64 + ((threadIdx.x / 32) & 3) * 16 + (lane >> 2);
+    const bool leader = (threadIdx.x & 127) == 0;  // arrives for its warpgroup
+    // descriptors of the tiles' first rows; a slot adds its offset / 16
+    const uint64_t q_base = smem_desc(smem_addr(sq) + w * 64 * kRowBytes, 16);
+    const uint64_t k_base = smem_desc(smem_addr(sk), 16);
+    const uint64_t v_base = smem_desc(smem_addr(sv), BN * kRowBytes);
+    const bool ragged = S % BN != 0;
+    // warpgroup 0 takes the first turn
+    if (CONSUMERS > 1 && w == CONSUMERS - 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+
+    int stage = 0, phase = 0, q_count = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++q_count) {
+      const int m_block = tile % n_m, bh = tile / n_m;
+      const bool last_tile = tile + (int)gridDim.x >= n_tiles;
+      const int qs = q_count & 1;
+      const uint64_t q_desc = q_base + qs * (Sh::kQBytes / 16);
+      float s[BN / 2];
+      uint32_t p[BN / 16][4];
+      float o_acc[DV / 2];
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.f;
+      float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, sc[STEPS][2];
+
+      // the softmax of step `step` (a std::integral_constant) of key tile j
+      auto softmax = [&](auto step, int j) {
+        constexpr int kStep = decltype(step)::value;
+        if (ragged && j == n_kv - 1) {
+          softmax_step<kStep, BN, true>(s, m, l, sc[kStep], j * BN, S, c);
+        } else {
+          softmax_step<kStep, BN, false>(s, m, l, sc[kStep], j * BN, S, c);
+        }
+      };
+      // the last turn of the block's last tile is not passed on: warpgroup
+      // 0's barrier got one arrival ahead at the start
+      auto pass = [&](int j) {
+        if (!(w == CONSUMERS - 1 && last_tile && j == n_kv - 1)) turn_pass<CONSUMERS>(w);
+      };
+
+      mbar_wait(q_full + qs, (q_count >> 1) & 1);
+      // key tile 0: S alone
+      mbar_wait(k_full + stage, phase);
+      turn_wait<CONSUMERS>(w);
+      issue_qk<DP>(s, q_desc, k_base + stage * (Sh::kKVBytes / 16));
+      pass(0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (leader) {
+        mbar_arrive(k_empty + stage);
+        if (n_kv == 1) mbar_arrive(q_empty + qs);
+      }
+      softmax(Step0(), 0);
+      pack_p<0, BN>(p, s);
+      if constexpr (STEPS == 2) {
+        softmax(Step1(), 0);
+        pack_p<1, BN>(p, s);
+      }
+      int v_stage = stage, v_phase = phase;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      // key tiles 1 ..: S of tile j in flight with P V of tile j - 1's first
+      // step, then the second step's P V under tile j's second softmax step
+      for (int j = 1; j < n_kv; ++j) {
+        mbar_wait(k_full + stage, phase);
+        turn_wait<CONSUMERS>(w);
+        issue_qk<DP>(s, q_desc, k_base + stage * (Sh::kKVBytes / 16));
+        rescale<DV>(o_acc, sc[0]);
+        mbar_wait(v_full + v_stage, v_phase);
+        const uint64_t v_desc = v_base + v_stage * (Sh::kKVBytes / 16);
+        issue_pv<0, DP, DV>(o_acc, p, v_desc);
+        pass(j);
+        wgmma_wait<1>();  // S of tile j; P V may still run
+        fence_regs(s);
+        if (leader) {
+          mbar_arrive(k_empty + stage);
+          if (j == n_kv - 1) mbar_arrive(q_empty + qs);
+        }
+        softmax(Step0(), j);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        fence_regs(p);
+        if constexpr (STEPS == 2) {
+          rescale<DV>(o_acc, sc[1]);  // still tile j - 1's second factor
+          issue_pv<1, DP, DV>(o_acc, p, v_desc);
+          pack_p<0, BN>(p, s);  // the first step's P V is done with these
+          softmax(Step1(), j);
+          wgmma_wait<0>();
+          fence_regs(o_acc);
+          fence_regs(p);
+        }
+        if (leader) mbar_arrive(v_empty + v_stage);
+        if constexpr (STEPS == 2) {
+          pack_p<1, BN>(p, s);
+        } else {
+          pack_p<0, BN>(p, s);
+        }
+        v_stage = stage;
+        v_phase = phase;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // the last tile's P V
+      rescale<DV>(o_acc, sc[0]);
+      mbar_wait(v_full + v_stage, v_phase);
+      const uint64_t v_desc = v_base + v_stage * (Sh::kKVBytes / 16);
+      issue_pv<0, DP, DV>(o_acc, p, v_desc);
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      if constexpr (STEPS == 2) {
+        rescale<DV>(o_acc, sc[1]);
+        issue_pv<1, DP, DV>(o_acc, p, v_desc);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+      }
+      if (leader) mbar_arrive(v_empty + v_stage);
+
+      // epilogue: full row sums across the 4 threads of a row, O / l as
+      // bf16 pairs, lse = m * scale + log(l)
+      const int b = bh / H, h = bh - b * H;
+      float l0 = l[0], l1 = l[1];
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      const int row0 = m_block * BM + row_in_tile, row1 = row0 + 8;
+      bf16* ob = o + b * so.b + h * so.h;
+      const int tg = lane & 3;
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i) {
+        const int col = i * 8 + tg * 2;
+        if (col < D) {
+          if (row0 < T) {
+            *reinterpret_cast<__nv_bfloat162*>(ob + row0 * so.t + col) =
+                __floats2bfloat162_rn(o_acc[4 * i] * inv0, o_acc[4 * i + 1] * inv0);
+          }
+          if (row1 < T) {
+            *reinterpret_cast<__nv_bfloat162*>(ob + row1 * so.t + col) =
+                __floats2bfloat162_rn(o_acc[4 * i + 2] * inv1, o_acc[4 * i + 3] * inv1);
+          }
+        }
+      }
+      if (tg == 0) {
+        float* lrow = lse + (long long)bh * T;
+        if (row0 < T) lrow[row0] = m[0] * scale + logf(l0);
+        if (row1 < T) lrow[row1] = m[1] * scale + logf(l1);
+      }
     }
   }
 }
 
-template <int DP, int VEC>
-int launch(int B, int H, int T, int S, int D, const void* q, const void* k, const void* v,
-           void* o, void* lse, const Strides& st, float scale, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<DP>();
-  static std::atomic<bool> smem_set[flash::kMaxDevices];
-  const int err = flash::set_smem_once(flash_fwd_kernel<DP, VEC>, smem, smem_set);
-  if (err != 0) return err;
-  const dim3 grid((T + block_rows<DP>() - 1) / block_rows<DP>(), B * H);
-  flash_fwd_kernel<DP, VEC><<<grid, Config<DP>::kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, T, S, D, st, scale * kLog2e, scale);
-  return static_cast<int>(cudaGetLastError());
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
 }
 
-template <int DP>
-int launch_width(int copy_bytes, int B, int H, int T, int S, int D, const void* q,
-                 const void* k, const void* v, void* o, void* lse, const Strides& st,
-                 float scale, cudaStream_t stream) {
-  switch (copy_bytes) {
-    case 16:
-      return launch<DP, 16>(B, H, T, S, D, q, k, v, o, lse, st, scale, stream);
-    case 4:
-      return launch<DP, 4>(B, H, T, S, D, q, k, v, o, lse, st, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// The 4-D map of a bf16 [B, L, H, D] tensor with (batch, token, head)
+// element strides st[0..2]: boxes of 64 columns x `rows` tokens of one
+// head, 128-byte swizzle, zeros outside the tensor
+int encode_map(CUtensorMap* map, const void* base, int B, int L, int H, int D,
+               const long long* st, int rows, int cols) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// per device: SMs, and each instance's resident blocks per SM (0: not yet known)
+int sm_count(int device) {
+  static std::atomic<int> count[flash::kMaxDevices];
+  int n = count[device].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
+    count[device].store(n, std::memory_order_relaxed);
   }
+  return n;
+}
+
+template <int DP, int DV>
+int launch(int B, int H, int T, int S, int D, const void* q, const void* k, const void* v,
+           void* o, void* lse, const long long* st, float scale, cudaStream_t stream) {
+  using Sh = Shape<DP>;
+  const auto kernel = flash_fwd_kernel<DP, DV>;
+  static std::atomic<bool> smem_set[flash::kMaxDevices];
+  static std::atomic<int> per_sm[flash::kMaxDevices];
+  int err = flash::set_smem_once(kernel, Sh::kSmemBytes, smem_set);
+  if (err != 0) return err;
+  int device = 0;
+  cudaGetDevice(&device);  // checked by set_smem_once
+  int blocks = per_sm[device].load(std::memory_order_relaxed);
+  if (blocks == 0) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, Sh::kThreads, Sh::kSmemBytes));
+    if (err != 0) return err;
+    if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    per_sm[device].store(blocks, std::memory_order_relaxed);
+  }
+  CUtensorMap maps[3];
+  const int q_rows = box_rows(Sh::kBlockM, T), kv_rows = box_rows(Sh::kBlockN, S);
+  const int cols = box_cols(Sh::kChunks, D);
+  if ((err = encode_map(&maps[0], q, B, T, H, D, st, q_rows, cols)) != 0 ||
+      (err = encode_map(&maps[1], k, B, S, H, D, st + 3, kv_rows, cols)) != 0 ||
+      (err = encode_map(&maps[2], v, B, S, H, D, st + 6, kv_rows, cols)) != 0) {
+    return err;
+  }
+  const long long tiles = (long long)((T + Sh::kBlockM - 1) / Sh::kBlockM) * B * H;
+  const long long grid = tiles < (long long)blocks * sm_count(device) ? tiles
+                                                                      : (long long)blocks * sm_count(device);
+  const OutStrides so = {st[9], st[10], st[11]};
+  flash_fwd_kernel<DP, DV><<<(unsigned)grid, Sh::kThreads, Sh::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), so, B, H, T, S,
+      D, scale * kLog2e, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, o: bf16 [B, T|S, H, D] with unit stride along D; `strides` holds
 // the (batch, token, head) element strides of q, k, v and o in that order.
-// lse: f32 [B, H, T], contiguous.  `dp` picks the padded width (48, 80 or
-// 160) and must be >= D.  `copy_bytes` is 16 when D % 8 == 0, every stride
-// is a multiple of 8 and q, k, v are 16-byte aligned, else 4 (D and the
-// strides even, 4-byte alignment).  Returns the cudaError_t of the launch.
+// q, k and v must suit a tensor map: 16-byte aligned, D % 8 == 0 and their
+// strides multiples of 8 (the wrapper stages anything else); o and lse
+// (f32 [B, H, T], contiguous) need 4-byte alignment.  `dp` picks the padded
+// width (48, 80 or 160) and must be >= D.  Returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                         void* o, void* lse, int B, int H, int T, int S,
-                                        int D, int dp, int copy_bytes,
-                                        const long long* strides, float scale,
+                                        int D, int dp, const long long* strides, float scale,
                                         void* stream) {
-  Strides st;
-  for (int i = 0; i < 12; ++i) st.v[i] = strides[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dp) {
     case 48:
-      return launch_width<48>(copy_bytes, B, H, T, S, D, q, k, v, o, lse, st, scale, s);
+      return D <= 40 ? launch<48, 40>(B, H, T, S, D, q, k, v, o, lse, strides, scale, s)
+                     : launch<48, 48>(B, H, T, S, D, q, k, v, o, lse, strides, scale, s);
     case 80:
-      return launch_width<80>(copy_bytes, B, H, T, S, D, q, k, v, o, lse, st, scale, s);
+      return launch<80, 80>(B, H, T, S, D, q, k, v, o, lse, strides, scale, s);
     case 160:
-      return launch_width<160>(copy_bytes, B, H, T, S, D, q, k, v, o, lse, st, scale, s);
+      return launch<160, 160>(B, H, T, S, D, q, k, v, o, lse, strides, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

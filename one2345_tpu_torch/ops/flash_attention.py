@@ -9,7 +9,10 @@ logsumexp), as the JAX function is through its ``custom_vjp``:
 - on CUDA tensors the forward launches ``csrc/flash_attention_fwd.cu`` and
   the backward ``csrc/flash_attention_bwd.cu`` (a dQ kernel and a dK/dV
   kernel; both built by ``_build`` at first use), or raises; it never falls
-  back;
+  back.  The forward reads q, k and v through TMA tensor maps: an input a
+  map cannot describe (``tma_ready``) is first staged into an aligned copy
+  (``stage_for_tma``), and the launch is counted in
+  ``flash_attention.staged_count``;
 - on CPU tensors the forward runs ``attention_reference`` and the backward
   ``attention_backward_reference``, the plain PyTorch versions, which are
   also what the kernels are held against on the card.
@@ -21,7 +24,8 @@ bound on an H100 and its design.  ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv`` wrap one backward kernel each;
 ``flash_attention_backward`` computes Dsum = rowsum(dO o O) and calls both.
 Launches are counted on the ``flash_attention`` function: ``launch_count``
-(forward), ``dq_launch_count`` and ``dkv_launch_count`` (backward).
+(forward), ``dq_launch_count`` and ``dkv_launch_count`` (backward), and
+``staged_count`` (forward launches whose inputs were staged first).
 """
 
 from __future__ import annotations
@@ -131,7 +135,7 @@ def kernel_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do=None) -> 
 
 
 def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do=None) -> int:
-    """Width of the kernels' copies from device to shared memory: 16 bytes
+    """Width of the backward kernels' copies from device to shared memory: 16 bytes
     when D is a multiple of 8 and every row of q, k, v (and, for the
     backward, dO) starts on a 16-byte boundary (strides multiples of 8
     elements, 16-byte aligned pointers), as the UNet's views do; else 4
@@ -144,6 +148,27 @@ def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do=None) -> in
     return 4
 
 
+def tma_ready(x: torch.Tensor) -> bool:
+    """Whether the forward kernel's TMA tensor maps can describe ``x`` as it
+    is: D a multiple of 8, a 16-byte aligned base and (batch, token, head)
+    strides that are positive multiples of 8 elements (16 bytes).  The
+    UNet's q, k and v views are; anything else is staged first."""
+    return x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 and all(
+        s > 0 and s % 8 == 0 for s in x.stride()[:3]
+    )
+
+
+def stage_for_tma(x: torch.Tensor) -> torch.Tensor:
+    """A copy of the [B, L, H, D] tensor ``x`` that ``tma_ready`` takes: a
+    view of the first D columns of a fresh [B, L, H, D rounded up to 8]
+    buffer (the rest of each row is never read)."""
+    B, L, H, D = x.shape
+    padded = torch.empty((B, L, H, -(-D // 8) * 8), dtype=x.dtype, device=x.device)
+    out = padded[..., :D]
+    out.copy_(x)
+    return out
+
+
 def _check_pointers(*tensors):
     for x in tensors:
         if x.device != tensors[0].device or x.data_ptr() % 4:
@@ -151,16 +176,17 @@ def _check_pointers(*tensors):
 
 
 @functools.cache
-def _bind(name: str, symbol: str, n_pointers: int):
+def _bind(name: str, symbol: str, n_pointers: int, n_ints: int = 7):
     """The C entry point ``symbol`` of kernel library ``name``, bound once:
-    ``n_pointers`` pointers, then seven ints (B, H, T, S, D, the padded
-    width, the copy width), the strides, the scale and the stream."""
+    ``n_pointers`` pointers, then ``n_ints`` ints (B, H, T, S, D, the padded
+    width and, for the backward, the copy width), the strides, the scale and
+    the stream."""
     from one2345_tpu_torch.ops import _build
 
     fn = getattr(_build.load(name), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     )
     return fn
@@ -187,7 +213,11 @@ def _check(err: int, symbol: str):
 def _launch_fwd(q, k, v):
     dp = kernel_width(q, k, v)
     _check_pointers(q, k, v)
-    fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5)
+    ready = [tma_ready(x) for x in (q, k, v)]
+    if not all(ready):
+        q, k, v = (x if ok else stage_for_tma(x) for x, ok in zip((q, k, v), ready))
+        flash_attention.staged_count += 1
+    fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5, 6)
     B, T, H, D = q.shape
     S = k.shape[1]
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
@@ -195,8 +225,7 @@ def _launch_fwd(q, k, v):
     with _on_device(q.device) as stream:
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, H, T, S, D, dp, copy_bytes(q, k, v), _strides(q, k, v, o), 1.0 / math.sqrt(D),
-            stream,
+            B, H, T, S, D, dp, _strides(q, k, v, o), 1.0 / math.sqrt(D), stream,
         )
     _check(err, "flash_attention_fwd")
     flash_attention.launch_count += 1
@@ -296,14 +325,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
     CPU tensors run the plain versions; CUDA tensors launch the kernels
     (bf16, D even and <= 160) and count the forward launch in
-    ``flash_attention.launch_count`` and the backward ones in
-    ``flash_attention.dq_launch_count`` and ``dkv_launch_count``.  Anything
-    else raises.
+    ``flash_attention.launch_count`` (and in ``staged_count`` when q, k or
+    v had to be staged for the forward's tensor maps) and the backward ones
+    in ``flash_attention.dq_launch_count`` and ``dkv_launch_count``.
+    Anything else raises.
     """
     _device_type(q, k, v)
     return _FlashAttention.apply(q, k, v)
 
 
 flash_attention.launch_count = 0
+flash_attention.staged_count = 0
 flash_attention.dq_launch_count = 0
 flash_attention.dkv_launch_count = 0

@@ -163,6 +163,114 @@ def test_copy_bytes_is_4_where_rows_are_not_16_byte_aligned(case):
     assert fa.copy_bytes(q, q, q) == 4
 
 
+def _unaligned(case):
+    """q of the four inputs whose rows a 16-byte copy cannot take."""
+    bf = torch.bfloat16
+    if case == "d42":  # D even but not a multiple of 8
+        return torch.zeros(3, 77, 4, 42, dtype=bf)
+    if case == "d2":
+        return torch.zeros(1, 1, 2, 2, dtype=bf)
+    if case == "stride44":  # D = 40 inside rows of 44 elements
+        return torch.zeros(2, 16, 4, 44, dtype=bf)[..., :40]
+    return torch.zeros(2, 16, 4, 48, dtype=bf)[..., 2:42]  # 4 bytes into rows of 48
+
+
+@pytest.mark.parametrize("case", ["d42", "d2", "stride44", "offset4"])
+def test_forward_stages_what_a_tensor_map_cannot_describe(case):
+    """The forward's tensor maps need D % 8 == 0, a 16-byte aligned base and
+    strides of 16 bytes: exactly the inputs on which copy_bytes is 4."""
+    q = _unaligned(case)
+    assert fa.copy_bytes(q, q, q) == 4
+    assert not fa.tma_ready(q)
+
+
+@pytest.mark.parametrize("channels,tokens", _unet_attention_levels())
+def test_forward_stages_none_of_the_unet_views(channels, tokens, monkeypatch):
+    """The q, k and v views of the UNet's self-attention at every level go
+    to the tensor maps as they are."""
+    heads = DiffusionConfig().unet.num_heads
+    seen = []
+
+    def record(q, k, v):
+        seen.append([fa.tma_ready(x) for x in (q, k, v)])
+        return fa.attention_reference(q, k, v)
+
+    monkeypatch.setattr(unet_mod, "flash_attention", record)
+    attn = unet_mod.Attention(channels, channels, heads, channels // heads).to(torch.bfloat16)
+    with torch.inference_mode():
+        attn(torch.zeros(2, tokens, channels, dtype=torch.bfloat16))
+    assert seen == [[True, True, True]]
+
+
+@pytest.mark.parametrize("case", ["d42", "d2", "stride44", "offset4"])
+def test_staged_copy_equals_its_input_and_suits_a_tensor_map(case):
+    """stage_for_tma gives the input's values in a view whose base is 16-byte
+    aligned and whose strides are multiples of 8 elements (rows padded to
+    D rounded up to 8)."""
+    q = _unaligned(case)
+    q.copy_(torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(q.dtype))
+    staged = fa.stage_for_tma(q)
+    assert torch.equal(staged, q) and staged.dtype == q.dtype
+    assert staged.data_ptr() % 16 == 0
+    assert all(st % 8 == 0 and st > 0 for st in staged.stride()[:3]) and staged.stride(-1) == 1
+    assert staged.stride(2) == -(-q.shape[-1] // 8) * 8
+    assert fa.tma_ready(staged) == (q.shape[-1] % 8 == 0)
+
+
+@pytest.mark.parametrize("case", ["aligned", "d42", "offset4"])
+def test_forward_launch_stages_counts_and_binds_once(case, monkeypatch):
+    """_launch_fwd hands the forward entry point five pointers (the staged
+    copies where the inputs needed one), then B, H, T, S, D and the padded
+    width, the (batch, token, head) strides of q, k, v and o, 1/sqrt(D) and
+    the stream; it counts the launch, and a launch with staged inputs once
+    in staged_count (monkeypatched library and stream: no card needed)."""
+    calls, loads = [], []
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    def load(name):
+        loads.append(name)
+        return types.SimpleNamespace(flash_attention_fwd_bf16=fn)
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(fa, "_on_device", lambda device: contextlib.nullcontext(0))
+    bf = torch.bfloat16
+    if case == "aligned":
+        q, k = torch.zeros(2, 64, 8, 40, dtype=bf), torch.zeros(2, 96, 8, 40, dtype=bf)
+    elif case == "d42":
+        q, k = torch.zeros(3, 77, 4, 42, dtype=bf), torch.zeros(3, 200, 4, 42, dtype=bf)
+    else:
+        q = torch.zeros(2, 64, 8, 48, dtype=bf)[..., 2:42]
+        k = torch.zeros(2, 96, 8, 40, dtype=bf)
+    v = k.clone()
+    f = fa.flash_attention
+    launches, staged = f.launch_count, f.staged_count
+    fa._bind.cache_clear()
+    try:
+        for _ in range(2):
+            o, lse = fa._launch_fwd(q, k, v)
+        bound = fa._bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5, 6)
+    finally:
+        fa._bind.cache_clear()
+    assert loads == ["flash_attention_fwd"] and len(bound.argtypes) == 5 + 6 + 3
+    assert f.launch_count == launches + 2
+    assert f.staged_count == staged + (0 if case == "aligned" else 2)
+    B, T, H, D = q.shape
+    assert o.shape == q.shape and lse.shape == (B, H, T) and lse.dtype == torch.float32
+    for args in calls:
+        assert args[5:11] == (B, H, T, k.shape[1], D, 48)
+        pointers = {args[0], args[1], args[2]}
+        passed_as_is = {x.data_ptr() for x in (q, k, v) if fa.tma_ready(x)}
+        assert len(pointers) == 3 and all(ptr % 16 == 0 for ptr in pointers)
+        assert passed_as_is <= pointers
+        strides = list(args[11])
+        assert len(strides) == 12 and all(st % 8 == 0 for st in strides[:9])
+        assert strides[9:] == list(o.stride()[:3])
+        assert args[12] == pytest.approx(1.0 / np.sqrt(D)) and args[13] == 0
+
+
 @pytest.mark.parametrize("channels,tokens", _unet_attention_levels())
 def test_copy_bytes_is_16_for_the_train_step_views(channels, tokens, monkeypatch):
     """Under training, the backward gets the UNet's q, k and v views and the

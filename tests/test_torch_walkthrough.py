@@ -1,6 +1,6 @@
 """The twins of the JAX walkthrough and demo (examples/torch_walkthrough.py,
 examples/torch_demo.py): the walkthrough runs end to end on the CPU with
---tiny and writes the JAX walkthrough's files and summary keys (read from
+--tiny --device cpu and writes the JAX walkthrough's files and summary keys (read from
 the JAX example's source, so the twin cannot drift from it); the demo
 calls the pipeline as the JAX demo does and prints its lines.  Their
 pipeline calls are held to JAX by tests/test_torch_pipeline.py."""
@@ -52,7 +52,7 @@ def test_walkthrough_tiny_writes_the_jax_walkthrough_s_files(tmp_path):
     names, keys = jax_walkthrough_contract()
     assert names == set(torch_walkthrough.ARTIFACTS) and len(keys) == 4
     out = str(tmp_path / "walk")
-    summary = torch_walkthrough.main(["--tiny", "--out", out])
+    summary = torch_walkthrough.main(["--tiny", "--device", "cpu", "--out", out])
     assert set(os.listdir(out)) == names
     with open(os.path.join(out, "summary.json")) as f:
         assert json.load(f) == summary
