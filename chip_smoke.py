@@ -8,17 +8,19 @@ Phases, one line each; any failure exits non-zero and prints no result:
 2. build: every CUDA kernel of the port, compiled by nvcc from the sources
    in the checkout (one process per source, all started together), with
    ptxas's registers, shared memory, spills and warnings for every
-   instance; any spill, or a setmaxnreg that ptxas ignored (C7508), fails
-   the run;
+   instance; any spill, a setmaxnreg that ptxas ignored (C7508) or wgmma
+   products that ptxas serialised (C7512-C7515) fail the run;
 3. kernels: the forward kernel against its plain PyTorch version at every
    shape the sampling path gives it (no input staged) and at two ragged
    shapes (the second, D = 42, through one staged copy for the tensor
-   maps), then the two backward kernels against the plain
-   backward at every shape the train step gives them and at the same two
-   ragged shapes (bf16 N(0, 1) inputs from a seeded generator), and two
-   launches of each at level 0 bit for bit; with the kernels', the plain
-   versions' and one library call's times (CUDA events, after warm-up) and
-   each kernel's bound on this card;
+   maps), then the two backward kernels (dQ, dK, dV and the dq kernel's
+   Dsum) against the plain backward at every shape the train step gives
+   them (nothing staged) and at the same two ragged shapes (the second
+   through one staged backward), bf16 N(0, 1) inputs from a seeded
+   generator, and two launches of each at level 0 bit for bit; with the
+   kernels', the whole backward's, the plain versions' and one library
+   call's times (CUDA events, after warm-up) and each kernel's bound on
+   this card;
 4. unet: one full-width Zero123-XL UNet eval (B=2) on the card (bf16, the
    kernels) against the same UNet on the CPU (f32, plain versions), with
    the same seeded weights and inputs;
@@ -200,8 +202,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    ElevationEstimator.save_match_visualizations on phase 7's warm views,
    the six PNGs read back; seconds per part;
 20. device times: each kernel's device time per launch (torch.profiler) at
-   the shapes of phase 3, and the device times of SDPA's forward and
-   backward (the library yardsticks of the kernels, with their names),
+   the shapes of phase 3, the port's whole backward (dq, then dkv) as one
+   call, and the device times of SDPA's forward and backward (the library
+   yardsticks of the kernels), each call with its kernels' names,
    after the timed phases 6 to 19, which a profiled run can slow on the
    host; then one warm reconstruct, one warm elevation estimate and one
    warm bf16 SAM encode under torch.profiler: device ms by kernel family
@@ -406,10 +409,11 @@ ATTENTION_SHAPES = [
     ("mid_b56", 56, 16, 8, 160),
 ]
 HEADLINE_SHAPE = "level0_b56"  # the heaviest call: its numbers go in the JSON line
-# (name, B, T, S, H, D, copy width in bytes) of the ragged checks: T and S
-# not multiples of the tiles, and D not a multiple of 8 (the backward's
-# 4-byte copies; the forward stages such inputs for its tensor maps)
-RAGGED_SHAPES = [("ragged_16b", 2, 1000, 1000, 8, 40, 16), ("ragged_4b", 3, 77, 200, 4, 42, 4)]
+# (name, B, T, S, H, D, staged) of the ragged checks: T and S not multiples
+# of the tiles, and D not a multiple of 8 (rows no tensor map can take, so
+# the forward and the backward each stage their inputs once)
+RAGGED_SHAPES = [("ragged_16b", 2, 1000, 1000, 8, 40, False),
+                 ("ragged_4b", 3, 77, 200, 4, 42, True)]
 # (name, T=S, D) of every attention backward of the train step (B=8, H=8)
 TRAIN_SHAPES = [("level0", 1024, 40), ("level1", 256, 80), ("level2", 64, 160), ("mid", 16, 160)]
 TRAIN_HEADLINE = "level0"
@@ -432,15 +436,17 @@ PHASE_SECONDS: dict[str, float] = {}  # wall seconds of each phase, in order
 
 
 def unstaged(label: str) -> int:
-    """K1's launches since its counts were set to 0; fails if any of them
-    staged its inputs first (the main path's q, k and v go to the forward's
-    tensor maps as they are)."""
+    """K1's launches since its counts were set to 0; fails if any of them,
+    or any backward since then, staged its inputs first (the main path's
+    and the train step's tensors go to the kernels' tensor maps as they
+    are)."""
     from one2345_tpu_torch.ops.flash_attention import flash_attention
 
-    if flash_attention.staged_count:
-        fail(f"{label}: {flash_attention.staged_count} of {flash_attention.launch_count} K1 "
-             f"launches staged their inputs")
-    return flash_attention.launch_count
+    f = flash_attention
+    if f.staged_count or f.bwd_staged_count:
+        fail(f"{label}: {f.staged_count} of {f.launch_count} K1 launches and "
+             f"{f.bwd_staged_count} backwards staged their inputs")
+    return f.launch_count
 
 
 def timed(name: str, phase, *args):
@@ -637,7 +643,7 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     dt = time.perf_counter() - t0
-    spills, ignored = [], []
+    spills, ignored, serialised = [], [], []
     for name in libs:
         entry = None
         for line in _build.build_log(name).splitlines():
@@ -651,10 +657,14 @@ def phase_build():
                 spills.append(f"{entry}: {line.strip()}")
             if "C7508" in line or "setmaxnreg ignored" in line:
                 ignored.append(f"{name}: {line.strip()}")
+            if "wgmma.mma_async instructions are serialized" in line:
+                serialised.append(f"{name}: {line.strip()}")
     if spills:
         fail("ptxas spills registers in " + "; ".join(spills))
-    if ignored:  # the forward's warp specialisation lost its register split
+    if ignored:  # the warp specialisation lost its register split
         fail("ptxas ignored setmaxnreg: " + "; ".join(ignored))
+    if serialised:  # C7512-C7515: every product waits for the one before
+        fail("ptxas serialised the wgmma products: " + "; ".join(serialised))
     log(
         f"phase build: {len(libs)} kernel(s) in {dt:.2f} s, no spills: {', '.join(sorted(libs))}"
     )
@@ -691,7 +701,9 @@ def forward_inputs(i: int):
 
 
 def backward_case(B: int, T: int, S: int, H: int, D: int, seed: int):
-    """Seeded bf16 N(0, 1) q, k, v, dO, the forward kernel's o and lse, and Dsum."""
+    """Seeded bf16 N(0, 1) q, k, v, dO, the forward kernel's o and lse, and
+    the plain Dsum = rowsum(dO o O) (what the dkv kernel takes when it is
+    timed alone)."""
     import torch
 
     from one2345_tpu_torch.ops import flash_attention as fa
@@ -712,38 +724,41 @@ def backward_inputs(i: int):
 
 
 def check_backward(name: str, q, k, v, do, o, lse, dsum):
-    """The dq and dkv kernels against the plain backward on the same inputs:
-    (errors over max |ref|, max abs errors) of dQ, dK, dV; fails beyond
-    BWD_TOL."""
+    """The backward (flash_attention_backward: the dq kernel, then dkv on
+    the Dsum it wrote) and the dq kernel's Dsum against the plain versions
+    on the same inputs: (errors over max |ref|, max abs errors) of dQ, dK,
+    dV and Dsum, and the backwards staged; fails beyond BWD_TOL."""
     import torch
 
     from one2345_tpu_torch.ops import flash_attention as fa
 
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum)
+    staged = fa.flash_attention.bwd_staged_count
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do)
+    staged = fa.flash_attention.bwd_staged_count - staged
+    _, dsum_kernel = fa.flash_attention_bwd_dq(q, k, v, do, lse, o)
     torch.cuda.synchronize()
-    refs = fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do)
-    abs_errs = [float((got.float() - ref).abs().max()) for got, ref in zip((dq, dk, dv), refs)]
+    refs = (*fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do), dsum)
+    abs_errs = [float((got.float() - ref).abs().max())
+                for got, ref in zip((*grads, dsum_kernel), refs)]
     errs = [e / float(ref.abs().max()) for e, ref in zip(abs_errs, refs)]
     if not max(errs) <= BWD_TOL:
-        fail(f"flash attention backward {name}: dq/dk/dv errors {errs} (<= {BWD_TOL})")
-    return errs, abs_errs
+        fail(f"flash attention backward {name}: dq/dk/dv/Dsum errors {errs} (<= {BWD_TOL})")
+    return errs, abs_errs, staged
 
 
-def check_repeatable(name: str, q, k, v, do, lse, dsum):
+def check_repeatable(name: str, q, k, v, do, o, lse):
     """Two launches of each backward kernel on the same inputs give
-    bit-identical outputs (no atomics); fails otherwise."""
+    bit-identical dQ, Dsum, dK and dV (no atomics); fails otherwise."""
     import torch
 
     from one2345_tpu_torch.ops import flash_attention as fa
 
-    runs = [
-        (fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum),
-         *fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum))
-        for _ in range(2)
-    ]
+    runs = []
+    for _ in range(2):
+        dq, dsum = fa.flash_attention_bwd_dq(q, k, v, do, lse, o)
+        runs.append((dq, dsum, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum)))
     torch.cuda.synchronize()
-    for label, a, b in zip(("dq", "dk", "dv"), *runs):
+    for label, a, b in zip(("dq", "Dsum", "dk", "dv"), *runs):
         if not torch.equal(a, b):
             fail(f"flash attention backward {name}: two launches differ in {label}")
 
@@ -754,8 +769,8 @@ def phase_kernels(exp_rate: float):
 
     from one2345_tpu_torch.ops.flash_attention import (
         attention_reference,
-        copy_bytes,
         flash_attention,
+        tma_ready,
     )
 
     rows = {}
@@ -782,88 +797,112 @@ def phase_kernels(exp_rate: float):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
         )
-    for i, (name, B, T, S, H, D, width) in enumerate(RAGGED_SHAPES):
+    for i, (name, B, T, S, H, D, want_staged) in enumerate(RAGGED_SHAPES):
         gen = torch.Generator(device="cuda").manual_seed(150 + i)
         q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
         k, v = (
             torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2)
         )
-        if copy_bytes(q, k, v) != width:
-            fail(f"flash_attention {name}: {copy_bytes(q, k, v)}-byte copies, expected {width}")
+        if all(tma_ready(x) for x in (q, k, v)) == want_staged:
+            fail(f"flash_attention {name}: tensor maps take the inputs: {not want_staged} expected")
         staged = flash_attention.staged_count
         err_o, err_lse = check_forward(name, q, k, v)
-        # the inputs of the 4-byte copies go through one staged, aligned copy
+        # inputs no tensor map can take go through one staged, aligned copy
         staged = flash_attention.staged_count - staged
-        if staged != (width == 4):
-            fail(f"flash_attention {name}: {staged} staged launches, expected {int(width == 4)}")
+        if staged != want_staged:
+            fail(f"flash_attention {name}: {staged} staged launches, expected {int(want_staged)}")
         rows[name] = dict(max_abs_err=err_o, lse_err=err_lse)
         log(
             f"phase kernels: flash_attention {name} B={B} T={T} S={S} H={H} D={D} "
-            f"({width}-byte copies, {'staged' if staged else 'not staged'}): O err {err_o:.3e} "
+            f"({'staged' if staged else 'not staged'}): O err {err_o:.3e} "
             f"(<= {O_TOL}) lse err {err_lse:.3e} (<= {LSE_TOL})"
         )
     return rows
 
 
+def backward_bounds(B: int, T: int, H: int, D: int, exp_rate: float) -> dict:
+    """{"dq", "dkv", "backward"}: (flops, bytes, kernel_bound) of each
+    kernel and of the whole backward at T=S.  dq reads q, k, v, O, dO, lse
+    and writes dQ and Dsum in 3 products; dkv reads q, k, v, dO, lse, Dsum
+    and writes dK, dV in 4; the whole backward reads q, k, v, O, dO, lse and
+    writes dQ, dK, dV in the 5 products it needs at least.  One exp2 per
+    score in each."""
+    n = B * T * H * D * 2  # one [B, T, H, D] bf16 tensor
+    row = B * H * T * 4    # one f32 [B, H, T] row vector
+    scores = B * H * T * T
+    out = {}
+    for key, products, nbytes in (("dq", 3, 6 * n + 2 * row), ("dkv", 4, 6 * n + 2 * row),
+                                  ("backward", 5, 8 * n + row)):
+        flops = 2.0 * products * scores * D
+        out[key] = (flops, nbytes, kernel_bound(flops, nbytes, scores, exp_rate))
+    return out
+
+
 def phase_kernels_bwd(exp_rate: float):
-    """The dq and dkv kernels against the plain backward at the train
-    step's shapes and at the ragged shapes, from the forward kernel's o and
-    lse."""
+    """The backward kernels against the plain backward at the train step's
+    shapes (nothing staged) and at the ragged shapes (``ragged_4b`` through
+    one staged backward), from the forward kernel's o and lse; dQ, dK, dV
+    and the dq kernel's Dsum."""
     from one2345_tpu_torch.ops import flash_attention as fa
 
     rows = {}
     B, H = TRAIN_BATCH, 8
+    labels = "dq/dk/dv/Dsum"
     for i, (name, T, D) in enumerate(TRAIN_SHAPES):
         q, k, v, do, o, lse, dsum, iters = backward_inputs(i)
-        errs, abs_errs = check_backward(name, q, k, v, do, o, lse, dsum)
+        errs, abs_errs, staged = check_backward(name, q, k, v, do, o, lse, dsum)
+        if staged:
+            fail(f"flash attention backward {name}: the train step's inputs were staged")
         repeat = ""
         if name == TRAIN_HEADLINE:
-            check_repeatable(name, q, k, v, do, lse, dsum)
+            check_repeatable(name, q, k, v, do, o, lse)
             repeat = " | two launches bit-identical"
-        dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum), iters)
+        dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, o), iters)
         dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum), iters)
-        plain_dq_ms = time_ms(lambda: fa.dq_reference(q, k, v, do, lse, dsum), max(iters // 5, 10))
+        whole_ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, do), iters)
+        plain_dq_ms = time_ms(lambda: fa.dq_reference(q, k, v, do, lse, o), max(iters // 5, 10))
         plain_dkv_ms = time_ms(lambda: fa.dkv_reference(q, k, v, do, lse, dsum), max(iters // 5, 10))
         # yardstick: the backward alone of PyTorch's fused attention (dQ, dK
         # and dV in one call), same inputs and dtype
         sdpa_ms = time_ms(sdpa_backward(q, k, v, do), iters)
-        n = q.numel() * q.element_size()  # one [B, T, H, D] bf16 tensor
-        stats = 2 * B * H * T * 4  # lse and dsum, f32 [B, H, T]
+        bounds = backward_bounds(B, T, H, D, exp_rate)
         row = {}
-        for kernel, flops, nbytes, ms, plain_ms, err in (
-            ("dq", 6.0 * B * H * T * T * D, 5 * n + stats, dq_ms, plain_dq_ms, abs_errs[0]),
-            ("dkv", 8.0 * B * H * T * T * D, 6 * n + stats, dkv_ms, plain_dkv_ms,
-             max(abs_errs[1:])),
+        for kernel, ms, plain_ms, err in (
+            ("dq", dq_ms, plain_dq_ms, max(abs_errs[0], abs_errs[3])),
+            ("dkv", dkv_ms, plain_dkv_ms, max(abs_errs[1:3])),
         ):
-            # one exp2 per score in each kernel (P recomputed from lse)
-            bound_ms, bound_by, terms = kernel_bound(flops, nbytes, B * H * T * T, exp_rate)
+            flops, _, (bound_ms, bound_by, terms) = bounds[kernel]
             row[kernel] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bound_terms=terms, flops=flops,
+                backward_ms=whole_ms,
             )
         rows[name] = row
+        whole_bound = bounds["backward"][2]
         log(
             f"phase kernels: flash_attention backward {name} B={B} T=S={T} H={H} D={D} "
-            f"({fa.copy_bytes(q, k, v, do)}-byte copies): "
-            f"dq/dk/dv err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} of max |ref| (<= {BWD_TOL}), "
-            f"abs {abs_errs[0]:.3e}/{abs_errs[1]:.3e}/{abs_errs[2]:.3e} | "
+            f"(not staged): {labels} err "
+            f"{'/'.join(f'{e:.3e}' for e in errs)} of max |ref| (<= {BWD_TOL}), abs "
+            f"{'/'.join(f'{e:.3e}' for e in abs_errs)} | "
             f"dq {dq_ms:.4f} ms (bound {row['dq']['bound_ms']:.4f}, {row['dq']['bound_by']}, "
             f"plain {plain_dq_ms:.4f}) | "
             f"dkv {dkv_ms:.4f} ms (bound {row['dkv']['bound_ms']:.4f}, {row['dkv']['bound_by']}, "
-            f"plain {plain_dkv_ms:.4f}) | sdpa backward {sdpa_ms:.4f} ms{repeat}"
+            f"plain {plain_dkv_ms:.4f}) | whole backward {whole_ms:.4f} ms (bound "
+            f"{whole_bound[0]:.4f}, {whole_bound[1]}) | sdpa backward {sdpa_ms:.4f} ms{repeat}"
         )
-    for i, (name, B, T, S, H, D, width) in enumerate(RAGGED_SHAPES):
+    for i, (name, B, T, S, H, D, want_staged) in enumerate(RAGGED_SHAPES):
         q, k, v, do, o, lse, dsum = backward_case(B, T, S, H, D, seed=250 + i)
-        if fa.copy_bytes(q, k, v, do) != width:
-            fail(f"flash attention backward {name}: {fa.copy_bytes(q, k, v, do)}-byte copies, "
-                 f"expected {width}")
-        errs, abs_errs = check_backward(name, q, k, v, do, o, lse, dsum)
-        rows[name] = {"dq": dict(max_abs_err=abs_errs[0]), "dkv": dict(max_abs_err=max(abs_errs[1:]))}
+        errs, abs_errs, staged = check_backward(name, q, k, v, do, o, lse, dsum)
+        if staged != want_staged:
+            fail(f"flash attention backward {name}: {staged} staged backwards, "
+                 f"expected {int(want_staged)}")
+        rows[name] = {"dq": dict(max_abs_err=max(abs_errs[0], abs_errs[3])),
+                      "dkv": dict(max_abs_err=max(abs_errs[1:3]))}
         log(
             f"phase kernels: flash_attention backward {name} B={B} T={T} S={S} H={H} D={D} "
-            f"({width}-byte copies): dq/dk/dv err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} of "
-            f"max |ref| (<= {BWD_TOL})"
+            f"({staged} staged backward): {labels} err "
+            f"{'/'.join(f'{e:.3e}' for e in errs)} of max |ref| (<= {BWD_TOL})"
         )
     return rows
 
@@ -913,11 +952,12 @@ def phase_device_times(rows: dict, bwd_rows: dict):
             f"kernels: {'; '.join(names)}"
         )
     for i, (name, T, D) in enumerate(TRAIN_SHAPES):
-        q, k, v, do, _, lse, dsum, iters = backward_inputs(i)
-        for kernel, fn in (("dq", fa.flash_attention_bwd_dq), ("dkv", fa.flash_attention_bwd_dkv)):
-            ms, recorded = device_ms_per_launch(
-                lambda: fn(q, k, v, do, lse, dsum), f"flash_bwd_{kernel}_kernel", iters
-            )
+        q, k, v, do, o, lse, dsum, iters = backward_inputs(i)
+        for kernel, call in (
+            ("dq", lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, o)),  # noqa: B023
+            ("dkv", lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum)),  # noqa: B023
+        ):
+            ms, recorded = device_ms_per_launch(call, f"flash_bwd_{kernel}_kernel", iters)
             row = bwd_rows[name][kernel]
             row["device_ms"] = ms
             log(
@@ -926,14 +966,22 @@ def phase_device_times(rows: dict, bwd_rows: dict):
                 f"recorded), {row['flops'] / ms / 1e9:.1f} TFLOP/s, "
                 f"{row['bound_ms'] / ms:.2f} of the bound"
             )
+        # the port's whole backward and SDPA's, each one call with every
+        # device kernel it runs
+        whole_ms, whole_names = device_ms_per_call(
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do), iters  # noqa: B023
+        )
         sdpa_ms, names = device_ms_per_call(sdpa_backward(q, k, v, do), iters)
         for kernel in ("dq", "dkv"):
             bwd_rows[name][kernel]["library_device_ms"] = sdpa_ms
+            bwd_rows[name][kernel]["backward_device_ms"] = whole_ms
+        row = bwd_rows[name]["dq"]
         log(
-            f"phase device times: sdpa backward {name} B={TRAIN_BATCH} T=S={T} H=8 D={D}: "
-            f"device {sdpa_ms:.4f} ms/call (event {bwd_rows[name]['dq']['library_ms']:.4f} ms) | "
-            f"dq + dkv device {bwd_rows[name]['dq']['device_ms'] + bwd_rows[name]['dkv']['device_ms']:.4f} ms"
-            f" | kernels: {'; '.join(names)}"
+            f"phase device times: whole backward {name} B={TRAIN_BATCH} T=S={T} H=8 D={D}: "
+            f"port device {whole_ms:.4f} ms/call (event {row['backward_ms']:.4f} ms; dq + dkv "
+            f"{row['device_ms'] + bwd_rows[name]['dkv']['device_ms']:.4f}), kernels: "
+            f"{'; '.join(whole_names)} | sdpa backward device {sdpa_ms:.4f} ms/call (event "
+            f"{row['library_ms']:.4f} ms), kernels: {'; '.join(names)}"
         )
 
 
@@ -966,6 +1014,7 @@ def phase_unet():
         ref = cpu_unet(x, t, ctx)
     cpu_s = time.perf_counter() - t0
     flash_attention.launch_count = flash_attention.staged_count = 0
+    flash_attention.bwd_staged_count = 0
     with torch.inference_mode():
         out = gpu_unet(x.cuda(), t.cuda(), ctx.cuda())
     torch.cuda.synchronize()
@@ -1008,6 +1057,7 @@ def phase_grad():
         module.load_state_dict(weights, strict=True)
         f = flash_attention
         f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.bwd_staged_count = 0
         with torch.autocast("cuda", dtype=torch.bfloat16, enabled=device == "cuda"):
             out = module(x.to(device), ctx.to(device))
         (out.float() * w.to(device)).sum().backward()
@@ -1096,6 +1146,7 @@ def phase_sampling(stage, smi):
         torch.cuda.reset_peak_memory_stats()
         timer = Timer(device="cuda")
         flash_attention.launch_count = flash_attention.staged_count = 0
+        flash_attention.bwd_staged_count = 0
         s1, s2 = run_main_path(stage, image, timer)
         torch.cuda.synchronize()
         launches = unstaged(f"sampling {run}")
@@ -1327,6 +1378,7 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
         out_dir = os.path.join(PIPELINE_OUT, run)
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launch_count = flash_attention.staged_count = 0
+        flash_attention.bwd_staged_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = pipe.run(image, out_dir=out_dir, skip_preprocess=True, seed=0,
@@ -1690,6 +1742,7 @@ def cli_run(name: str, flags: list, img_path: str, raw, params, expected: int):
     try:
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launch_count = flash_attention.staged_count = 0
+        flash_attention.bwd_staged_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = cli.main(["--img_path", img_path, "--out_dir", out_dir, "--output_format", ".obj",
@@ -1912,6 +1965,7 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
     # one full-width PLMS stage-1 call: views 0-3, 75 steps
     img = torch.as_tensor(input_image(), device="cuda") * 2.0 - 1.0
     flash_attention.launch_count = flash_attention.staged_count = 0
+    flash_attention.bwd_staged_count = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = stage.sample_views(img[None].expand(4, *img.shape), STAGE1_DELTA_X[:4],
@@ -1971,6 +2025,7 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
     cpu_s = time.perf_counter() - t0
     del cpu_unet
     flash_attention.launch_count = flash_attention.staged_count = 0
+    flash_attention.bwd_staged_count = 0
     q.int8_matmul.launch_count = 0
     calls = []
     hooks = [m.register_forward_pre_hook(lambda mod, a: calls.append((mod, a[0].cpu())))
@@ -2493,6 +2548,7 @@ def phase_train(stage, params, smi):
     for step in range(TRAIN_STEPS):
         torch.cuda.reset_peak_memory_stats()
         f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.bwd_staged_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = trainer.train_step(batch)
@@ -3268,6 +3324,7 @@ def phase_train_zero123(params, smi):
                 "--sample_steps", str(Z123_SAMPLE_STEPS), "--exp_dir", exp]
         torch.cuda.reset_peak_memory_stats()
         f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.bwd_staged_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer = train_zero123.main(argv)
@@ -3958,6 +4015,7 @@ def zero123_sharded_check(stage, params, mesh) -> tuple:
     for i in range(MC_STEPS):
         torch.cuda.reset_peak_memory_stats()
         f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
+        f.bwd_staged_count = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses.append(float(step(batch)))
@@ -4080,7 +4138,7 @@ def sampler_sharded_check(stage, mesh) -> tuple:
     out, launches = {}, {}
     for name, m in (("unsharded", None), ("sharded", mesh)):
         stage.mesh = m
-        f.launch_count = f.staged_count = 0
+        f.launch_count = f.staged_count = f.bwd_staged_count = 0
         try:
             out[name] = [stage.stage1(image, 5, indices=idx, steps=MC_SAMPLE_STEPS)
                          for idx in ([0, 1, 2, 3], list(range(4, 12)))]
@@ -4213,7 +4271,7 @@ def gloo_card_rank(rank: int, world: int, port: int, q, draws, steps: int, surfa
         stage = Zero123Stage(DiffusionConfig(), params=zparams, device="cuda:0", mesh=mesh)
         del zparams
         image = input_image(stage.config.image_size)
-        f.launch_count = f.staged_count = 0
+        f.launch_count = f.staged_count = f.bwd_staged_count = 0
         t0 = time.perf_counter()
         imgs = [stage.stage1(image, 5, indices=idx, steps=steps).cpu().numpy()
                 for idx in ([0, 1, 2, 3], list(range(4, 12)))]
@@ -4472,9 +4530,12 @@ def example_kernels() -> str:
         bwd = []
         for j, B in enumerate(EXAMPLE_BWD_BATCHES):
             case = backward_case(B, T, T, EXAMPLE_HEADS, D, seed=500 + 10 * i + j)
-            bwd.append(max(check_backward(f"example D={D} T={T} B={B}", *case)[0]))
+            errs, _, staged = check_backward(f"example D={D} T={T} B={B}", *case)
+            if staged:
+                fail(f"examples: the backward at D={D} T={T} B={B} staged its inputs")
+            bwd.append(max(errs))
         lines.append(f"D={D} T={T}: K1 O err {max(errs):.3e} at B={EXAMPLE_FWD_BATCHES}, "
-                     f"dq/dk/dv err {max(bwd):.3e} at B={EXAMPLE_BWD_BATCHES}")
+                     f"dq/dk/dv/Dsum err {max(bwd):.3e} at B={EXAMPLE_BWD_BATCHES}")
     return "; ".join(lines)
 
 
@@ -4514,6 +4575,7 @@ def examples_in_process(runs: dict):
     from one2345_tpu_torch.ops.flash_attention import flash_attention
 
     flash_attention.launch_count = flash_attention.staged_count = 0
+    flash_attention.bwd_staged_count = 0
     flash_attention.dq_launch_count = flash_attention.dkv_launch_count = 0
     t0 = time.perf_counter()
     ok = tpw.wiring_check(75.0, 256, device="cuda")
@@ -4618,6 +4680,7 @@ class CountedRuns:
 
         def counted(pipe, *a, **k):
             flash_attention.launch_count = flash_attention.staged_count = 0
+            flash_attention.bwd_staged_count = 0
             q.int8_matmul.launch_count = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4836,7 +4899,7 @@ def surface_rank(rank: int, surface: dict, port: int) -> dict:
 
     t_start = time.perf_counter()
     out_dir = os.path.join(SURFACE_OUT, "gloo_cli", f"rank{rank}")
-    f.launch_count = f.staged_count = 0
+    f.launch_count = f.staged_count = f.bwd_staged_count = 0
     t0 = time.perf_counter()
     res = cli.main(["--img_path", surface["img"], "--params", surface["params"], "--sampler",
                     "dpmpp", "--out_dir", out_dir, "--seed", "0"], device="cuda:0")
@@ -4848,7 +4911,7 @@ def surface_rank(rank: int, surface: dict, port: int) -> dict:
     cfg = cli.apply_fast_modes(PipelineConfig(), sampler="dpmpp")
     service = One2345Service(One2345Pipeline(cfg, checkpoint.restore(surface["params"]),
                                              device="cuda:0"))
-    f.launch_count = f.staged_count = 0
+    f.launch_count = f.staged_count = f.bwd_staged_count = 0
     if rank != 0:
         server.serve(service, device="cuda:0")  # follows rank 0 until it stops
         return dict(out, served_k1=unstaged(f"surface rank {rank} server"),
@@ -4976,6 +5039,7 @@ def phase_surface_examples(surface: dict, smi):
     secs = {}
     walk = os.path.join(SURFACE_OUT, "walkthrough")
     flash_attention.launch_count = flash_attention.staged_count = 0
+    flash_attention.bwd_staged_count = 0
     t0 = time.perf_counter()
     summary = torch_walkthrough.main(["--img", surface["img"], "--out", walk, "--params",
                                       surface["params"]])
@@ -4990,6 +5054,7 @@ def phase_surface_examples(surface: dict, smi):
              f"{summary}, PNG shapes {shapes}")
     demo = os.path.join(SURFACE_OUT, "demo")
     flash_attention.launch_count = flash_attention.staged_count = 0
+    flash_attention.bwd_staged_count = 0
     t0 = time.perf_counter()
     res = torch_demo.main(["--img_path", surface["img"], "--out_dir", demo, "--params",
                            surface["params"]])
@@ -5121,6 +5186,10 @@ def main() -> int:
             "bound_terms": row["bound_terms"],
             "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"],
+            # the port's whole backward (dq, then dkv) as one call, beside
+            # SDPA's whole backward in library_device_ms
+            "backward_ms": row["backward_ms"],
+            "backward_device_ms": row["backward_device_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

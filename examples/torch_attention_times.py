@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the flash-attention forward kernel of a checkout of the PyTorch
 port at every main-path shape (chip_smoke.ATTENTION_SHAPES), or with
-``--backward`` its dq and dkv kernels at every train-step shape
-(chip_smoke.TRAIN_SHAPES), on the card.
+``--backward`` its whole backward and its dq and dkv kernels at every
+train-step shape (chip_smoke.TRAIN_SHAPES), on the card.
 
     python3 examples/torch_attention_times.py [--backward] [--repo DIR]
 
@@ -13,18 +13,25 @@ kernel it prints the wrapper's time by CUDA events, the kernel's device
 time per launch from torch.profiler and the wrapper's host time per call
 (the host clock over calls that are not waited for) before any profiled
 run and after all of them, then one JSON line of these and the card's name
-and power limit.  For the forward each shape also gets its bound
-(chip_smoke.kernel_bound) and the same three times of PyTorch's
-scaled_dot_product_attention on the same inputs (the library yardstick;
-its device time is per call, over all its kernels).  Inputs are bf16 N(0,
-1) from a seeded generator (chip_smoke.forward_inputs, backward_inputs).
-Needs one card.
+and power limit.  Each shape also gets its bound (chip_smoke.kernel_bound,
+chip_smoke.backward_bounds) and the same three times of PyTorch's
+scaled_dot_product_attention on the same inputs, forward or backward (the
+library yardstick).  The whole backward is one call of
+``flash_attention_backward`` and SDPA's one ``torch.autograd.grad``: their
+device times are per call, over every kernel they run (for a checkout
+whose backward computes Dsum in PyTorch before the dq and dkv kernels,
+that pass too).  The forward's rows also carry the SHA-256 of O and lse,
+so that two checkouts' outputs can be compared bit for bit.  Inputs are
+bf16 N(0, 1) from a seeded generator (chip_smoke.forward_inputs,
+backward_inputs).  Needs one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -48,7 +55,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=HERE, help="checkout whose one2345_tpu_torch is timed")
     ap.add_argument("--backward", action="store_true",
-                    help="time the backward kernels (dq, dkv) at the train-step shapes")
+                    help="time the backward (whole, dq, dkv) at the train-step shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_attention_times: no CUDA device", file=sys.stderr)
@@ -72,25 +79,39 @@ def main() -> int:
         torch.cuda.synchronize()
         return ms
 
-    # (label, call, kernel name or None for a library call, launches per
-    # timing) of every timed case, and the forward's bounds by label
-    cases, bounds = [], {}
+    # (label, call, kernel name or None for a whole call, launches per
+    # timing) of every timed case, and the bounds by label
+    cases, bounds, digests = [], {}, {}
+    _, exp_rate = cs.phase_device()
     if args.backward:
+        # the dq entry point takes O (it computes Dsum) or, in a checkout
+        # from before that, Dsum
+        takes_o = list(inspect.signature(fa.flash_attention_bwd_dq).parameters)[-1] == "o"
         for i, (name, T, D) in enumerate(cs.TRAIN_SHAPES):
-            q, k, v, do, _, lse, dsum, iters = cs.backward_inputs(i)
+            q, k, v, do, o, lse, dsum, iters = cs.backward_inputs(i)
             label = f"{name} B={cs.TRAIN_BATCH} T=S={T} H=8 D={D}"
-            for kernel, fn in (("dq", fa.flash_attention_bwd_dq), ("dkv", fa.flash_attention_bwd_dkv)):
-                call = (lambda fn=fn, x=(q, k, v, do, lse, dsum): fn(*x))
-                cases.append((f"{kernel} {label}", call, f"flash_bwd_{kernel}_kernel", iters))
+            whole = (lambda x=(q, k, v, o, lse, do): fa.flash_attention_backward(*x))
+            cases.append((f"backward {label}", whole, None, iters))
+            dq = (lambda x=(q, k, v, do, lse, o if takes_o else dsum): fa.flash_attention_bwd_dq(*x))
+            cases.append((f"dq {label}", dq, "flash_bwd_dq_kernel", iters))
+            dkv = (lambda x=(q, k, v, do, lse, dsum): fa.flash_attention_bwd_dkv(*x))
+            cases.append((f"dkv {label}", dkv, "flash_bwd_dkv_kernel", iters))
+            cases.append((f"sdpa backward {label}", cs.sdpa_backward(q, k, v, do), None, iters))
+            for kernel, (_, _, bound) in cs.backward_bounds(cs.TRAIN_BATCH, T, 8, D,
+                                                            exp_rate).items():
+                bounds[f"{kernel} {label}"] = bound[:2]
     else:
         import torch.nn.functional as F
 
-        _, exp_rate = cs.phase_device()
         for i, (name, B, T, H, D) in enumerate(cs.ATTENTION_SHAPES):
             q, k, v, iters = cs.forward_inputs(i)
             label = f"{name} B={B} T=S={T} H={H} D={D}"
             call = (lambda x=(q, k, v): fa.flash_attention(*x))
             cases.append((label, call, "flash_fwd_kernel", iters))
+            o, lse = call()
+            digests[label] = hashlib.sha256(
+                o.contiguous().view(torch.int16).cpu().numpy().tobytes()
+                + lse.contiguous().cpu().numpy().tobytes()).hexdigest()
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa = (lambda x=(qt, kt, vt): F.scaled_dot_product_attention(*x))
             cases.append((f"sdpa {label}", sdpa, None, iters))
@@ -104,13 +125,15 @@ def main() -> int:
     for label, call, _, iters in cases:
         out[label] = {"ms": cs.time_ms(call, iters), "host_ms": host_ms(call, iters)}
     for label, call, kernel, iters in cases:
-        if kernel is None:  # a library call: every kernel it launches
-            out[label]["device_ms"], _ = cs.device_ms_per_call(call, iters)
+        if kernel is None:  # a whole call: every kernel it launches
+            out[label]["device_ms"], out[label]["kernels"] = cs.device_ms_per_call(call, iters)
         else:
             out[label]["device_ms"], _ = cs.device_ms_per_launch(call, kernel, iters)
-    for label, call, _, iters in cases:
+    for label, call, kernel, iters in cases:
         row = out[label]
         row["host_ms_after_profiler"] = host_ms(call, iters)
+        if label in digests:
+            row["outputs_sha256"] = digests[label]
         bound = ""
         if label in bounds:
             row["bound_ms"], row["bound_by"] = bounds[label]
@@ -118,9 +141,11 @@ def main() -> int:
                      f"{row['bound_ms'] / row['device_ms']:.2f} of it")
         print(
             f"{label}: {row['ms']:.4f} ms (CUDA events), "
-            f"{row['device_ms']:.4f} ms device per {'call' if label.startswith('sdpa') else 'launch'}"
+            f"{row['device_ms']:.4f} ms device per {'launch' if kernel else 'call'}"
             f"{bound}, {row['host_ms']:.4f} ms host per "
-            f"call ({row['host_ms_after_profiler']:.4f} after the profiler) | {repo} | {smi}",
+            f"call ({row['host_ms_after_profiler']:.4f} after the profiler)"
+            + (f" | O, lse sha256 {digests[label][:16]}" if label in digests else "")
+            + f" | {repo} | {smi}",
             flush=True,
         )
     key = "flash_attention_bwd" if args.backward else "flash_attention_fwd"

@@ -7,7 +7,8 @@ resource report and the SASS of each kernel instance, counted by opcode.
 
 ``--repo`` names the checkout whose ``one2345_tpu_torch/csrc/<source>.cu`` is
 compiled (default: this one), so the kernel of another commit can be read
-beside this one's.  The source is compiled to a cubin with the flags of
+beside this one's; ``--source flash_attention_bwd`` reads the dq and dkv
+kernels (every padded-width instance of each).  The source is compiled to a cubin with the flags of
 ``ops/_build.py`` (``-gencode arch=compute_90a,code=sm_90a -O3 -Xptxas -v``)
 and disassembled by ``cuobjdump -sass``.  For every kernel whose mangled
 name matches ``--match`` it prints ptxas's registers, shared memory and

@@ -94,14 +94,30 @@
 
 namespace {
 
+using flash::box_cols;
+using flash::box_rows;
 using flash::ex2;
+using flash::fence_regs;
+using flash::kChunkCols;
+using flash::kLog2e;
+using flash::kRowBytes;
+using flash::mbar_arrive;
+using flash::mbar_expect_tx;
+using flash::mbar_init;
+using flash::mbar_wait;
 using flash::pack_bf16;
 using flash::smem_addr;
+using flash::smem_desc;
+using flash::tma_load;
+using flash::tma_prefetch_map;
+using flash::turn_pass;
+using flash::turn_wait;
+using flash::wgmma_commit;
+using flash::wgmma_fence;
+using flash::wgmma_rs;
+using flash::wgmma_ss;
+using flash::wgmma_wait;
 typedef __nv_bfloat16 bf16;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kChunkCols = 64;     // bf16 columns of one 128-byte swizzled row
-constexpr int kRowBytes = 128;
 
 // Shape of each instance: DP the padded head width of Q K^T (a multiple of
 // 16), BN keys per K/V tile, CONSUMERS warpgroups of 64 query rows, STAGES
@@ -148,211 +164,6 @@ struct Shape {
   static constexpr int kBarrierOffset = 2 * kQBytes + 2 * kStages * kKVBytes;
   static constexpr int kSmemBytes = kBarrierOffset + (4 + 4 * kStages) * 8 + 1024;
 };
-
-// ---------------------------------------------------------------- mbarriers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// ------------------------------------------------------------------- TMA
-
-// one box of a 4-D tensor map (columns, rows, head, batch) into shared
-// memory, completing `bytes` on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
-         "r"(col), "r"(row), "r"(head), "r"(batch)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
-
-// ----------------------------------------------------------------- wgmma
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand (layout
-// type 1): start address, leading and stride byte offsets, all >> 4.  For a
-// K-major operand (rows of 128 bytes along K) the stride offset is the 8-row
-// group's 1024 bytes and the leading offset is unused; for an MN-major one
-// (V: rows of 128 bytes along N, one row per key) the stride offset is the
-// 8-key group's 1024 bytes and the leading offset the distance between
-// 64-column chunks.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lead_bytes >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the fence, commit and wait instructions
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-  }
-}
-
-#define D8(i)                                                                              \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (+)= A B^T, m64nNk16, A and B from shared memory (both K-major);
-// scale_d 0 overwrites d
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
-                                         int scale_d);
-
-// d += A B, m64nNk16, A a 64x16 bf16 fragment in registers (four words per
-// thread, the mma.sync m16n8k16 A layout per warp), B from shared memory
-// MN-major (transposed)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<40>(float (&d)[20], const uint32_t (&a)[4],
-                                            uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19"
-      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
-      : D8(0), D8(8), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
-                                            uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : D8(0), D8(8), D8(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
-                                            uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80], const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
-      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-#undef D8
-
-// Rows of a TMA box: the tile's rows, or fewer when the whole sequence is
-// shorter (rounded up to 8); columns: 64, or D rounded up to 8 when one
-// chunk holds the row.  The host encodes the maps with the same counts.
-__host__ __device__ constexpr int box_rows(int tile_rows, int length) {
-  return tile_rows < (length + 7) / 8 * 8 ? tile_rows : (length + 7) / 8 * 8;
-}
-
-__host__ __device__ constexpr int box_cols(int chunks, int D) {
-  return chunks == 1 ? (D + 7) / 8 * 8 : kChunkCols;
-}
 
 // ------------------------------------------------------- consumer pieces
 
@@ -473,21 +284,6 @@ __device__ __forceinline__ void rescale(float (&o)[DV / 2], const float (&scale)
     o[4 * i + 1] *= scale[0];
     o[4 * i + 2] *= scale[1];
     o[4 * i + 3] *= scale[1];
-  }
-}
-
-// The consumer warpgroups take turns issuing products, in a ring: warpgroup
-// w waits on barrier 1 + w and hands the turn to the next by arriving at
-// its barrier (256 threads: the waiting warpgroup and the arriving one)
-template <int CONSUMERS>
-__device__ __forceinline__ void turn_wait(int w) {
-  if (CONSUMERS > 1) asm volatile("bar.sync %0, 256;\n" :: "r"(1 + w) : "memory");
-}
-
-template <int CONSUMERS>
-__device__ __forceinline__ void turn_pass(int w) {
-  if (CONSUMERS > 1) {
-    asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + (w + 1) % CONSUMERS) : "memory");
   }
 }
 
@@ -753,93 +549,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constan
   }
 }
 
-// ------------------------------------------------------------------ host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// The 4-D map of a bf16 [B, L, H, D] tensor with (batch, token, head)
-// element strides st[0..2]: boxes of 64 columns x `rows` tokens of one
-// head, 128-byte swizzle, zeros outside the tensor
-int encode_map(CUtensorMap* map, const void* base, int B, int L, int H, int D,
-               const long long* st, int rows, int cols) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// per device: SMs, and each instance's resident blocks per SM (0: not yet known)
-int sm_count(int device) {
-  static std::atomic<int> count[flash::kMaxDevices];
-  int n = count[device].load(std::memory_order_relaxed);
-  if (n == 0) {
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
-    count[device].store(n, std::memory_order_relaxed);
-  }
-  return n;
-}
-
 template <int DP, int DV>
 int launch(int B, int H, int T, int S, int D, const void* q, const void* k, const void* v,
            void* o, void* lse, const long long* st, float scale, cudaStream_t stream) {
   using Sh = Shape<DP>;
-  const auto kernel = flash_fwd_kernel<DP, DV>;
   static std::atomic<bool> smem_set[flash::kMaxDevices];
   static std::atomic<int> per_sm[flash::kMaxDevices];
-  int err = flash::set_smem_once(kernel, Sh::kSmemBytes, smem_set);
+  const long long tiles = (long long)((T + Sh::kBlockM - 1) / Sh::kBlockM) * B * H;
+  unsigned grid = 0;
+  int err = flash::persistent_grid(flash_fwd_kernel<DP, DV>, Sh::kThreads, Sh::kSmemBytes, tiles,
+                                   smem_set, per_sm, &grid);
   if (err != 0) return err;
-  int device = 0;
-  cudaGetDevice(&device);  // checked by set_smem_once
-  int blocks = per_sm[device].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, Sh::kThreads, Sh::kSmemBytes));
-    if (err != 0) return err;
-    if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-    per_sm[device].store(blocks, std::memory_order_relaxed);
-  }
   CUtensorMap maps[3];
   const int q_rows = box_rows(Sh::kBlockM, T), kv_rows = box_rows(Sh::kBlockN, S);
   const int cols = box_cols(Sh::kChunks, D);
-  if ((err = encode_map(&maps[0], q, B, T, H, D, st, q_rows, cols)) != 0 ||
-      (err = encode_map(&maps[1], k, B, S, H, D, st + 3, kv_rows, cols)) != 0 ||
-      (err = encode_map(&maps[2], v, B, S, H, D, st + 6, kv_rows, cols)) != 0) {
+  if ((err = flash::encode_map(&maps[0], q, B, T, H, D, st, q_rows, cols)) != 0 ||
+      (err = flash::encode_map(&maps[1], k, B, S, H, D, st + 3, kv_rows, cols)) != 0 ||
+      (err = flash::encode_map(&maps[2], v, B, S, H, D, st + 6, kv_rows, cols)) != 0) {
     return err;
   }
-  const long long tiles = (long long)((T + Sh::kBlockM - 1) / Sh::kBlockM) * B * H;
-  const long long grid = tiles < (long long)blocks * sm_count(device) ? tiles
-                                                                      : (long long)blocks * sm_count(device);
   const OutStrides so = {st[9], st[10], st[11]};
-  flash_fwd_kernel<DP, DV><<<(unsigned)grid, Sh::kThreads, Sh::kSmemBytes, stream>>>(
+  flash_fwd_kernel<DP, DV><<<grid, Sh::kThreads, Sh::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(o), static_cast<float*>(lse), so, B, H, T, S,
       D, scale * kLog2e, scale);
   return static_cast<int>(cudaGetLastError());

@@ -7,12 +7,14 @@ is a ``torch.autograd.Function``, differentiable in q, k and v (not in the
 logsumexp), as the JAX function is through its ``custom_vjp``:
 
 - on CUDA tensors the forward launches ``csrc/flash_attention_fwd.cu`` and
-  the backward ``csrc/flash_attention_bwd.cu`` (a dQ kernel and a dK/dV
-  kernel; both built by ``_build`` at first use), or raises; it never falls
-  back.  The forward reads q, k and v through TMA tensor maps: an input a
-  map cannot describe (``tma_ready``) is first staged into an aligned copy
-  (``stage_for_tma``), and the launch is counted in
-  ``flash_attention.staged_count``;
+  the backward ``csrc/flash_attention_bwd.cu`` (a dQ kernel, which also
+  computes Dsum = rowsum(dO o O), and a dK/dV kernel; both built by
+  ``_build`` at first use), or raises; it never falls back.  Every kernel
+  reads its bf16 inputs through TMA tensor maps: an input a map cannot
+  describe (``tma_ready``) is first staged into an aligned copy
+  (``stage_for_tma``), and the call is counted in
+  ``flash_attention.staged_count`` (forward) or ``bwd_staged_count``
+  (backward);
 - on CPU tensors the forward runs ``attention_reference`` and the backward
   ``attention_backward_reference``, the plain PyTorch versions, which are
   also what the kernels are held against on the card.
@@ -22,10 +24,10 @@ The kernels replace the Pallas TPU kernels ``_flash_fwd_kernel``,
 ``one2345_tpu/ops/flash_attention.py``; each source's header gives its
 bound on an H100 and its design.  ``flash_attention_bwd_dq`` and
 ``flash_attention_bwd_dkv`` wrap one backward kernel each;
-``flash_attention_backward`` computes Dsum = rowsum(dO o O) and calls both.
-Launches are counted on the ``flash_attention`` function: ``launch_count``
-(forward), ``dq_launch_count`` and ``dkv_launch_count`` (backward), and
-``staged_count`` (forward launches whose inputs were staged first).
+``flash_attention_backward`` calls both.  Launches are counted on the
+``flash_attention`` function: ``launch_count`` (forward),
+``dq_launch_count`` and ``dkv_launch_count`` (backward), ``staged_count``
+and ``bwd_staged_count`` (calls whose inputs were staged first).
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ import math
 import torch
 
 _PADDED_WIDTHS = (48, 80, 160)  # template instances of the kernels
-_MAX_GRID_Y = 65535
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -71,11 +72,13 @@ def _fa2_terms(q, k, v, do, lse, dsum):
     return qf, kf, dof, p, ds
 
 
-def dq_reference(q, k, v, do, lse, dsum):
-    """The dq kernel's plain version: dQ = dS K / sqrt(D), in q's dtype."""
+def dq_reference(q, k, v, do, lse, o):
+    """The dq kernel's plain version: (dQ = dS K / sqrt(D) in q's dtype,
+    Dsum = ``softmax_grad_rowsum(o, do)``)."""
+    dsum = softmax_grad_rowsum(o, do)
     _, kf, _, _, ds = _fa2_terms(q, k, v, do, lse, dsum)
     dq = torch.matmul(ds, kf) / math.sqrt(q.shape[-1])
-    return dq.transpose(1, 2).to(q.dtype)
+    return dq.transpose(1, 2).to(q.dtype), dsum
 
 
 def dkv_reference(q, k, v, do, lse, dsum):
@@ -94,8 +97,8 @@ def attention_backward_reference(q, k, v, o, lse, do):
     :param q/o/do: [B, T, H, D]; :param k/v: [B, S, H, D]; :param lse: [B, H, T]
     :return: (dq, dk, dv) in the dtypes of q, k and v
     """
-    dsum = softmax_grad_rowsum(o, do)
-    return (dq_reference(q, k, v, do, lse, dsum), *dkv_reference(q, k, v, do, lse, dsum))
+    dq, dsum = dq_reference(q, k, v, do, lse, o)
+    return (dq, *dkv_reference(q, k, v, do, lse, dsum))
 
 
 def _strides_ok(x: torch.Tensor) -> bool:
@@ -129,31 +132,16 @@ def kernel_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do=None) -> 
         raise ValueError("flash_attention: empty sequence")
     if D % 2 or D > _PADDED_WIDTHS[-1]:
         raise ValueError(f"flash_attention: head dim {D} must be even and <= 160")
-    if B * H > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention: B*H = {B * H} above {_MAX_GRID_Y}")
     return next(w for w in _PADDED_WIDTHS if w >= D)
 
 
-def copy_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do=None) -> int:
-    """Width of the backward kernels' copies from device to shared memory: 16 bytes
-    when D is a multiple of 8 and every row of q, k, v (and, for the
-    backward, dO) starts on a 16-byte boundary (strides multiples of 8
-    elements, 16-byte aligned pointers), as the UNet's views do; else 4
-    bytes (bf16 pairs)."""
-    tensors = (q, k, v) if do is None else (q, k, v, do)
-    if q.shape[-1] % 8 == 0 and all(
-        x.data_ptr() % 16 == 0 and not any(s % 8 for s in x.stride()[:3]) for x in tensors
-    ):
-        return 16
-    return 4
-
-
 def tma_ready(x: torch.Tensor) -> bool:
-    """Whether the forward kernel's TMA tensor maps can describe ``x`` as it
-    is: D a multiple of 8, a 16-byte aligned base and (batch, token, head)
-    strides that are positive multiples of 8 elements (16 bytes).  The
-    UNet's q, k and v views are; anything else is staged first."""
-    return x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 and all(
+    """Whether the kernels' TMA tensor maps can describe ``x`` as it is: D a
+    multiple of 8, unit stride along D, a 16-byte aligned base and (batch,
+    token, head) strides that are positive multiples of 8 elements.  The UNet's q, k
+    and v views, the forward's o and the output gradient of the train step
+    are; anything else is staged first."""
+    return x.shape[-1] % 8 == 0 and x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
         s > 0 and s % 8 == 0 for s in x.stride()[:3]
     )
 
@@ -169,6 +157,14 @@ def stage_for_tma(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def stage_unready(*tensors) -> tuple[tuple[torch.Tensor, ...], bool]:
+    """The tensors with every one that ``tma_ready`` refuses replaced by its
+    staged copy, and whether any was."""
+    ready = [tma_ready(x) for x in tensors]
+    staged = tuple(x if ok else stage_for_tma(x) for x, ok in zip(tensors, ready))
+    return staged, not all(ready)
+
+
 def _check_pointers(*tensors):
     for x in tensors:
         if x.device != tensors[0].device or x.data_ptr() % 4:
@@ -176,11 +172,10 @@ def _check_pointers(*tensors):
 
 
 @functools.cache
-def _bind(name: str, symbol: str, n_pointers: int, n_ints: int = 7):
+def _bind(name: str, symbol: str, n_pointers: int, n_ints: int = 6):
     """The C entry point ``symbol`` of kernel library ``name``, bound once:
-    ``n_pointers`` pointers, then ``n_ints`` ints (B, H, T, S, D, the padded
-    width and, for the backward, the copy width), the strides, the scale and
-    the stream."""
+    ``n_pointers`` pointers, then ``n_ints`` ints (B, H, T, S, D and the
+    padded width), the strides, the scale and the stream."""
     from one2345_tpu_torch.ops import _build
 
     fn = getattr(_build.load(name), symbol)
@@ -213,10 +208,8 @@ def _check(err: int, symbol: str):
 def _launch_fwd(q, k, v):
     dp = kernel_width(q, k, v)
     _check_pointers(q, k, v)
-    ready = [tma_ready(x) for x in (q, k, v)]
-    if not all(ready):
-        q, k, v = (x if ok else stage_for_tma(x) for x, ok in zip((q, k, v), ready))
-        flash_attention.staged_count += 1
+    (q, k, v), staged = stage_unready(q, k, v)
+    flash_attention.staged_count += staged
     fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5, 6)
     B, T, H, D = q.shape
     S = k.shape[1]
@@ -232,50 +225,84 @@ def _launch_fwd(q, k, v):
     return o, lse
 
 
-def _launch_bwd(symbol, q, k, v, do, lse, dsum, outputs):
-    dp = kernel_width(q, k, v, do)
+def _launch_bwd_kernel(symbol, dp, tensors, outputs):
+    """Launch backward entry point ``symbol`` at padded width ``dp`` on
+    ``tensors``: q, k, v, then O and dO (dq) or dO (dkv), then lse, then
+    Dsum (dkv), the bf16 ones ``tma_ready``; raises on an O, dO, lse or Dsum
+    the kernel does not take."""
+    q, k = tensors[:2]
     B, T, H, D = q.shape
-    for name, x in (("lse", lse), ("dsum", dsum)):
-        if x.dtype != torch.float32 or x.shape != (B, H, T) or not x.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous f32 [B, H, T]")
-    _check_pointers(q, k, v, do, lse, dsum, *outputs)
-    fn = _bind("flash_attention_bwd", symbol, 6 + len(outputs))
+    for x in tensors[3:]:
+        if x.dim() == 4:
+            if x.shape != q.shape or x.dtype != q.dtype:
+                raise ValueError("flash_attention: O and dO must be bf16 shaped as q")
+        elif x.dtype != torch.float32 or x.shape != (B, H, T) or not x.is_contiguous():
+            raise ValueError("flash_attention: lse and Dsum must be contiguous f32 [B, H, T]")
+    _check_pointers(*tensors, *outputs)
+    fn = _bind("flash_attention_bwd", symbol, len(tensors) + len(outputs))
+    grids = [x for x in (*tensors, *outputs) if x.dim() == 4]
     with _on_device(q.device) as stream:
         err = fn(
-            *(x.data_ptr() for x in (q, k, v, do, lse, dsum, *outputs)),
-            B, H, T, k.shape[1], D, dp, copy_bytes(q, k, v, do),
-            _strides(q, k, v, do, *outputs), 1.0 / math.sqrt(D), stream,
+            *(x.data_ptr() for x in (*tensors, *outputs)), B, H, T, k.shape[1], D, dp,
+            _strides(*grids), 1.0 / math.sqrt(D), stream,
         )
     _check(err, symbol)
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, dsum):
-    """dQ of the attention backward: the dq kernel on CUDA tensors (bf16,
-    counted in ``flash_attention.dq_launch_count``), its plain version on
-    CPU tensors.
-
-    :param q/do: [B, T, H, D]; :param k/v: [B, S, H, D]
-    :param lse: the forward's logsumexp; :param dsum: ``softmax_grad_rowsum``
-    """
-    if _device_type(q, k, v, do, lse, dsum) == "cpu":
-        return dq_reference(q, k, v, do, lse, dsum)
+def _launch_dq(q, k, v, do, lse, o):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("flash_attention_bwd_dq_bf16", q, k, v, do, lse, dsum, (dq,))
+    dsum = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd_kernel("flash_attention_bwd_dq_bf16", kernel_width(q, k, v, do),
+                       (q, k, v, o, do, lse), (dq, dsum))
     flash_attention.dq_launch_count += 1
-    return dq
+    return dq, dsum
+
+
+def _launch_dkv(q, k, v, do, lse, dsum):
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd_kernel("flash_attention_bwd_dkv_bf16", kernel_width(q, k, v, do),
+                       (q, k, v, do, lse, dsum), (dk, dv))
+    flash_attention.dkv_launch_count += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, o, lse, do):
+    """Stage what a tensor map cannot take (counted once in
+    ``bwd_staged_count``), then launch dq, which returns dQ and Dsum, and
+    dkv on that Dsum: (dq, dk, dv)."""
+    (q, k, v, o, do), staged = stage_unready(q, k, v, o, do)
+    flash_attention.bwd_staged_count += staged
+    dq, dsum = _launch_dq(q, k, v, do, lse, o)
+    return (dq, *_launch_dkv(q, k, v, do, lse, dsum))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, o):
+    """(dQ, Dsum) of the attention backward: the dq kernel on CUDA tensors
+    (bf16, counted in ``flash_attention.dq_launch_count``; staged inputs in
+    ``bwd_staged_count``), its plain version on CPU tensors.
+
+    :param q/do/o: [B, T, H, D]; :param k/v: [B, S, H, D]
+    :param lse: the forward's logsumexp; :param o: the forward's output
+    :return: (dq [B, T, H, D], Dsum = rowsum(dO o O) f32 [B, H, T])
+    """
+    if _device_type(q, k, v, do, lse, o) == "cpu":
+        return dq_reference(q, k, v, do, lse, o)
+    (q, k, v, do, o), staged = stage_unready(q, k, v, do, o)
+    flash_attention.bwd_staged_count += staged
+    return _launch_dq(q, k, v, do, lse, o)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, dsum):
     """(dK, dV) of the attention backward: the dkv kernel on CUDA tensors
-    (bf16, counted in ``flash_attention.dkv_launch_count``), its plain
-    version on CPU tensors.  Arguments as ``flash_attention_bwd_dq``."""
+    (bf16, counted in ``flash_attention.dkv_launch_count``; staged inputs in
+    ``bwd_staged_count``), its plain version on CPU tensors.  Arguments as
+    ``flash_attention_bwd_dq``, with Dsum (as it returns) in place of o."""
     if _device_type(q, k, v, do, lse, dsum) == "cpu":
         return dkv_reference(q, k, v, do, lse, dsum)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("flash_attention_bwd_dkv_bf16", q, k, v, do, lse, dsum, (dk, dv))
-    flash_attention.dkv_launch_count += 1
-    return dk, dv
+    (q, k, v, do), staged = stage_unready(q, k, v, do)
+    flash_attention.bwd_staged_count += staged
+    return _launch_dkv(q, k, v, do, lse, dsum)
 
 
 def _device_type(*tensors) -> str:
@@ -287,16 +314,13 @@ def _device_type(*tensors) -> str:
 
 def flash_attention_backward(q, k, v, o, lse, do):
     """(dq, dk, dv) of softmax(q k^T / sqrt(D)) v for the output gradient
-    ``do``, given the forward's ``o`` and ``lse``: Dsum by one reduction,
-    then the dq and the dkv kernel (CUDA) or their plain versions (CPU)."""
-    _device_type(q, k, v, o, lse, do)
-    if not _strides_ok(do):  # autograd hands dO over with the caller's strides
-        do = do.contiguous()
-    dsum = softmax_grad_rowsum(o, do)
-    return (
-        flash_attention_bwd_dq(q, k, v, do, lse, dsum),
-        *flash_attention_bwd_dkv(q, k, v, do, lse, dsum),
-    )
+    ``do``, given the forward's ``o`` and ``lse``: the dq kernel (which
+    computes Dsum) then the dkv kernel on CUDA tensors, with no other pass
+    between them but a counted staging copy where one is needed; their
+    plain versions on CPU tensors."""
+    if _device_type(q, k, v, o, lse, do) == "cpu":
+        return attention_backward_reference(q, k, v, o, lse, do)
+    return _launch_bwd(q, k, v, o, lse, do)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -327,7 +351,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     (bf16, D even and <= 160) and count the forward launch in
     ``flash_attention.launch_count`` (and in ``staged_count`` when q, k or
     v had to be staged for the forward's tensor maps) and the backward ones
-    in ``flash_attention.dq_launch_count`` and ``dkv_launch_count``.
+    in ``flash_attention.dq_launch_count`` and ``dkv_launch_count`` (and in
+    ``bwd_staged_count`` when the backward staged its inputs).
     Anything else raises.
     """
     _device_type(q, k, v)
@@ -338,3 +363,4 @@ flash_attention.launch_count = 0
 flash_attention.staged_count = 0
 flash_attention.dq_launch_count = 0
 flash_attention.dkv_launch_count = 0
+flash_attention.bwd_staged_count = 0

@@ -26,20 +26,21 @@ def _counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "B,T,S,H,D,width,offset",
+    "B,T,S,H,D,staged,offset",
     [
-        (8, 1024, 1024, 8, 40, 16, 0), (56, 1024, 1024, 8, 40, 16, 0),
-        (56, 256, 256, 8, 80, 16, 0), (56, 64, 64, 8, 160, 16, 0), (56, 16, 16, 8, 160, 16, 0),
+        (8, 1024, 1024, 8, 40, False, 0), (56, 1024, 1024, 8, 40, False, 0),
+        (56, 256, 256, 8, 80, False, 0), (56, 64, 64, 8, 160, False, 0),
+        (56, 16, 16, 8, 160, False, 0),
         # ragged T and S (not multiples of the tiles); D not a multiple of 8
-        (2, 1000, 1000, 8, 40, 16, 0), (3, 77, 200, 4, 42, 4, 0),
+        (2, 1000, 1000, 8, 40, False, 0), (3, 77, 200, 4, 42, True, 0),
         # rows that start 4 bytes into rows of D + 8 (staged, D % 8 == 0)
-        (2, 130, 300, 4, 40, 4, 2),
+        (2, 130, 300, 4, 40, True, 2),
     ],
 )
-def test_kernel_matches_plain_version_on_card(B, T, S, H, D, width, offset, cuda_device):
+def test_kernel_matches_plain_version_on_card(B, T, S, H, D, staged, offset, cuda_device):
     """K1 against its plain version in f32 from the same bf16 inputs, O and
-    lse.  Inputs that a tensor map cannot describe (the 4-byte cases) go
-    through one staged copy, counted in staged_count; the others none."""
+    lse.  Inputs that a tensor map cannot describe go through one staged
+    copy, counted in staged_count; the others none."""
     gen = torch.Generator(device=cuda_device).manual_seed(B * T + S + D)
 
     def draw(L):
@@ -47,14 +48,14 @@ def test_kernel_matches_plain_version_on_card(B, T, S, H, D, width, offset, cuda
         return x.to(torch.bfloat16)[..., offset:offset + D]
 
     q, k, v = draw(T), draw(S), draw(S)
-    assert fa.copy_bytes(q, k, v) == width
+    assert all(fa.tma_ready(x) for x in (q, k, v)) != staged
     before = fa.flash_attention.launch_count
-    staged = fa.flash_attention.staged_count
+    staged_before = fa.flash_attention.staged_count
     out, lse = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     ref_out, ref_lse = fa.attention_reference(q.float(), k.float(), v.float())
     assert fa.flash_attention.launch_count == before + 1
-    assert fa.flash_attention.staged_count == staged + (width == 4)
+    assert fa.flash_attention.staged_count == staged_before + staged
     # bf16 output and bf16 P in the P.V product: ~1e-2 absolute
     assert max_err(out.float(), ref_out) < 2e-2
     assert max_err(lse, ref_lse) < 1e-2
@@ -62,41 +63,51 @@ def test_kernel_matches_plain_version_on_card(B, T, S, H, D, width, offset, cuda
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "B,T,S,H,D,width",
+    "B,T,S,H,D,staged,offset",
     [
-        (8, 1024, 1024, 8, 40, 16), (8, 256, 256, 8, 80, 16), (8, 64, 64, 8, 160, 16),
-        (8, 16, 16, 8, 160, 16),
+        # the train step's shapes (B=8, 8 heads)
+        (8, 1024, 1024, 8, 40, False, 0), (8, 256, 256, 8, 80, False, 0),
+        (8, 64, 64, 8, 160, False, 0), (8, 16, 16, 8, 160, False, 0),
+        # the quality twins' (4 heads, D = 16 / 24, T = 16 / 64)
+        (4, 64, 64, 4, 16, False, 0), (16, 16, 16, 4, 24, False, 0),
         # ragged T and S (not multiples of the tiles); D not a multiple of 8
-        (2, 1000, 1000, 8, 40, 16), (3, 77, 200, 4, 42, 4),
+        (2, 1000, 1000, 8, 40, False, 0), (3, 77, 200, 4, 42, True, 0),
+        # rows that start 4 bytes into rows of D + 8 (staged, D % 8 == 0)
+        (2, 130, 300, 4, 40, True, 2),
     ],
 )
-def test_backward_kernels_match_plain_version_on_card(B, T, S, H, D, width, cuda_device):
-    """K2 (dq and dkv kernels) at the train step's shapes (B=8, 8 heads) and
-    at two ragged shapes against the plain backward in f32 from the same
-    bf16 inputs and the forward kernel's o and lse; errors relative to max
-    |ref| (bf16 P and dS in the products, bf16 outputs: 6.2e-3 at most on
-    an H100).  A second launch gives bit-identical outputs (no atomics)."""
+def test_backward_kernels_match_plain_version_on_card(B, T, S, H, D, staged, offset, cuda_device):
+    """K2 (the dq kernel, which also computes Dsum, and the dkv kernel)
+    against the plain backward in f32 from the same bf16 inputs and the
+    forward kernel's o and lse: dQ, dK, dV and Dsum, errors relative to max
+    |ref| (bf16 P and dS in the products, bf16 outputs).  Inputs a tensor
+    map cannot describe go through one staged backward.  A second launch
+    gives bit-identical outputs (no atomics)."""
     gen = torch.Generator(device=cuda_device).manual_seed(B * T + S + D)
-    q, do = (
-        torch.randn(B, T, H, D, generator=gen, device=cuda_device).to(torch.bfloat16)
-        for _ in range(2)
-    )
-    k, v = (
-        torch.randn(B, S, H, D, generator=gen, device=cuda_device).to(torch.bfloat16)
-        for _ in range(2)
-    )
-    assert fa.copy_bytes(q, k, v, do) == width
+
+    def draw(L):
+        x = torch.randn(B, L, H, D + (8 if offset else 0), generator=gen, device=cuda_device)
+        return x.to(torch.bfloat16)[..., offset:offset + D]
+
+    q, do, k, v = draw(T), draw(T), draw(S), draw(S)
     o, lse = fa.flash_attention(q, k, v)
     counts = _counts()
+    staged_before = fa.flash_attention.bwd_staged_count
     grads = fa.flash_attention_backward(q, k, v, o, lse, do)
     again = fa.flash_attention_backward(q, k, v, o, lse, do)
+    dq, dsum = fa.flash_attention_bwd_dq(q, k, v, do, lse, o)
     torch.cuda.synchronize()
     refs = fa.attention_backward_reference(q.float(), k.float(), v.float(), o, lse, do)
-    assert _counts() == (counts[0], counts[1] + 2, counts[2] + 2)
+    ref_dsum = fa.softmax_grad_rowsum(o, do)
+    assert _counts() == (counts[0], counts[1] + 3, counts[2] + 2)
+    assert fa.flash_attention.bwd_staged_count == staged_before + 3 * staged
+    assert torch.equal(dq, grads[0])
     for got, repeat, ref in zip(grads, again, refs):
         assert got.dtype == torch.bfloat16
         assert torch.equal(got, repeat)
         assert max_err(got.float(), ref) < 1.5e-2 * float(ref.abs().max())
+    assert dsum.dtype == torch.float32 and dsum.shape == (B, H, T)
+    assert max_err(dsum, ref_dsum) < 1.5e-2 * float(ref_dsum.abs().max())
 
 
 @pytest.fixture

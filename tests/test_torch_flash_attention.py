@@ -129,40 +129,6 @@ def _unet_attention_levels():
     return levels
 
 
-@pytest.mark.parametrize("channels,tokens", _unet_attention_levels())
-def test_copy_bytes_is_16_for_the_unet_views(channels, tokens, monkeypatch):
-    """The q, k and v views that the UNet's self-attention hands the kernel
-    (bf16 Linear outputs viewed as [B, T, H, D]) take the 16-byte copies."""
-    heads = DiffusionConfig().unet.num_heads
-    seen = []
-
-    def record(q, k, v):
-        seen.append((fa.kernel_width(q, k, v), fa.copy_bytes(q, k, v), q.shape))
-        return fa.attention_reference(q, k, v)
-
-    monkeypatch.setattr(unet_mod, "flash_attention", record)
-    attn = unet_mod.Attention(channels, channels, heads, channels // heads).to(torch.bfloat16)
-    with torch.inference_mode():
-        attn(torch.zeros(2, tokens, channels, dtype=torch.bfloat16))
-    D = channels // heads
-    assert seen == [(next(w for w in (48, 80, 160) if w >= D), 16, (2, tokens, heads, D))]
-
-
-@pytest.mark.parametrize("case", ["d42", "d2", "stride44", "offset4"])
-def test_copy_bytes_is_4_where_rows_are_not_16_byte_aligned(case):
-    bf = torch.bfloat16
-    if case == "d42":  # D even but not a multiple of 8
-        q = torch.zeros(3, 77, 4, 42, dtype=bf)
-    elif case == "d2":
-        q = torch.zeros(1, 1, 2, 2, dtype=bf)
-    elif case == "stride44":  # D = 40 inside rows of 44 elements
-        q = torch.zeros(2, 16, 4, 44, dtype=bf)[..., :40]
-    else:  # D = 40 starting 4 bytes into each row of 48
-        q = torch.zeros(2, 16, 4, 48, dtype=bf)[..., 2:42]
-    assert fa.kernel_width(q, q, q) in (48, 80, 160)
-    assert fa.copy_bytes(q, q, q) == 4
-
-
 def _unaligned(case):
     """q of the four inputs whose rows a 16-byte copy cannot take."""
     bf = torch.bfloat16
@@ -178,9 +144,10 @@ def _unaligned(case):
 @pytest.mark.parametrize("case", ["d42", "d2", "stride44", "offset4"])
 def test_forward_stages_what_a_tensor_map_cannot_describe(case):
     """The forward's tensor maps need D % 8 == 0, a 16-byte aligned base and
-    strides of 16 bytes: exactly the inputs on which copy_bytes is 4."""
+    strides of 16 bytes: none of these inputs has all three, though the
+    kernels take each of them (bf16 pairs)."""
     q = _unaligned(case)
-    assert fa.copy_bytes(q, q, q) == 4
+    assert fa.kernel_width(q, q, q) in (48, 80, 160)
     assert not fa.tma_ready(q)
 
 
@@ -271,48 +238,58 @@ def test_forward_launch_stages_counts_and_binds_once(case, monkeypatch):
         assert args[12] == pytest.approx(1.0 / np.sqrt(D)) and args[13] == 0
 
 
+_BWD_INPUTS = ("q", "k", "v", "o", "do")
+
+
+@pytest.mark.parametrize("position", _BWD_INPUTS)
+@pytest.mark.parametrize("case", ["d42", "d2", "stride44", "offset4"])
+def test_backward_stages_what_a_tensor_map_cannot_describe(case, position):
+    """stage_unready, as the backward calls it on q, k, v, O and dO, copies
+    exactly the inputs a tensor map cannot describe: the one unaligned
+    input, or all five where D % 8 != 0; the others go to the kernels as
+    they are, and a staged copy holds its input's values."""
+    odd = _unaligned(case)
+    odd.copy_(torch.randn(odd.shape, generator=torch.Generator().manual_seed(7)).to(odd.dtype))
+    inputs = [odd if name == position else torch.zeros(odd.shape, dtype=odd.dtype)
+              for name in _BWD_INPUTS]
+    out, staged = fa.stage_unready(*inputs)
+    expect = [name == position or odd.shape[-1] % 8 != 0 for name in _BWD_INPUTS]
+    assert staged
+    for x, y, copied in zip(inputs, out, expect):
+        assert (y is not x) == copied
+        assert torch.equal(y, x) and fa.tma_ready(y) == (x.shape[-1] % 8 == 0 or not copied)
+
+
 @pytest.mark.parametrize("channels,tokens", _unet_attention_levels())
-def test_copy_bytes_is_16_for_the_train_step_views(channels, tokens, monkeypatch):
-    """Under training, the backward gets the UNet's q, k and v views and the
-    output gradient autograd hands over; the dq and dkv kernels take all
-    four with 16-byte copies."""
+def test_backward_stages_none_of_the_train_step_views(channels, tokens, monkeypatch):
+    """Under training, the backward gets the UNet's q, k and v views, the
+    forward's o and the output gradient autograd hands over: all five go to
+    the tensor maps as they are, so the train step stages nothing."""
     heads = DiffusionConfig().unet.num_heads
     seen = []
-    dq_plain = fa.flash_attention_bwd_dq
+    backward = fa.flash_attention_backward
 
-    def record(q, k, v, do, lse, dsum):
-        seen.append((fa.kernel_width(q, k, v, do), fa.copy_bytes(q, k, v, do), do.shape))
-        return dq_plain(q, k, v, do, lse, dsum)
+    def record(q, k, v, o, lse, do):
+        seen.append(([fa.tma_ready(x) for x in (q, k, v, o, do)], fa.kernel_width(q, k, v, do)))
+        return backward(q, k, v, o, lse, do)
 
-    monkeypatch.setattr(fa, "flash_attention_bwd_dq", record)
+    monkeypatch.setattr(fa, "flash_attention_backward", record)
     attn = unet_mod.Attention(channels, channels, heads, channels // heads).to(torch.bfloat16)
     x = torch.zeros(2, tokens, channels, dtype=torch.bfloat16, requires_grad=True)
     attn(x).float().square().sum().backward()
     D = channels // heads
-    assert seen == [(next(w for w in (48, 80, 160) if w >= D), 16, (2, tokens, heads, D))]
+    assert seen == [([True] * 5, next(w for w in (48, 80, 160) if w >= D))]
 
 
-@pytest.mark.parametrize("case", ["contiguous_do", "unaligned_do"])
-def test_copy_bytes_takes_the_output_gradient(case):
-    """16 bytes for aligned q, k, v and a contiguous dO; 4 when only dO's
-    rows are not 16-byte aligned (D = 40 starting 4 bytes into rows of 48)."""
-    bf = torch.bfloat16
-    q = torch.zeros(2, 64, 8, 40, dtype=bf)
-    if case == "contiguous_do":
-        do = torch.zeros_like(q)
-    else:
-        do = torch.zeros(2, 64, 8, 48, dtype=bf)[..., 2:42]
-    assert fa.copy_bytes(q, q, q) == 16
-    assert fa.kernel_width(q, q, q, do) == 48
-    assert fa.copy_bytes(q, q, q, do) == (16 if case == "contiguous_do" else 4)
-
-
-@pytest.mark.parametrize("D,width", [(40, 16), (42, 4)])
-def test_backward_launch_passes_the_copy_width_and_binds_once(D, width, monkeypatch):
-    """_launch_bwd hands each backward entry point B, H, T, S, D, the padded
-    width and the copy width (16 or 4 bytes, from copy_bytes over q, k, v
-    and dO), and binds each entry point once (monkeypatched library and
-    stream: no card needed)."""
+@pytest.mark.parametrize("case", ["aligned", "d42", "offset4"])
+def test_backward_launch_stages_counts_and_binds_once(case, monkeypatch):
+    """_launch_bwd stages what a tensor map cannot take once for both
+    kernels (one count in bwd_staged_count per call), hands the dq entry
+    point q, k, v, O, dO, lse, dQ and Dsum and the dkv entry point q, k, v,
+    dO, lse, that Dsum, dK and dV, then B, H, T, S, D, the padded width,
+    the (batch, token, head) strides of the six bf16 tensors, 1/sqrt(D)
+    and the stream; it counts both launches and binds each entry point
+    once (monkeypatched library and stream: no card needed)."""
     calls, loads = [], []
 
     def entry(name):
@@ -321,30 +298,75 @@ def test_backward_launch_passes_the_copy_width_and_binds_once(D, width, monkeypa
             return 0
         return fn
 
+    symbols = ("flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16")
+
     def load(name):
         loads.append(name)
-        return types.SimpleNamespace(**{s: entry(s) for s in ("dq_sym", "dkv_sym")})
+        return types.SimpleNamespace(**{s: entry(s) for s in symbols})
 
     monkeypatch.setattr(_build, "load", load)
     monkeypatch.setattr(fa, "_on_device", lambda device: contextlib.nullcontext(0))
     bf = torch.bfloat16
-    q, do = torch.zeros(3, 77, 4, D, dtype=bf), torch.zeros(3, 77, 4, D, dtype=bf)
-    k, v = torch.zeros(3, 200, 4, D, dtype=bf), torch.zeros(3, 200, 4, D, dtype=bf)
-    lse, dsum = torch.zeros(3, 4, 77), torch.zeros(3, 4, 77)
+    if case == "aligned":
+        q, k = torch.zeros(2, 64, 8, 40, dtype=bf), torch.zeros(2, 96, 8, 40, dtype=bf)
+        do = torch.zeros_like(q)
+    elif case == "d42":
+        q, k = torch.zeros(3, 77, 4, 42, dtype=bf), torch.zeros(3, 200, 4, 42, dtype=bf)
+        do = torch.zeros_like(q)
+    else:  # only dO starts 4 bytes into its rows
+        q, k = torch.zeros(2, 64, 8, 40, dtype=bf), torch.zeros(2, 96, 8, 40, dtype=bf)
+        do = torch.zeros(2, 64, 8, 48, dtype=bf)[..., 2:42]
+    v, o = k.clone(), q.clone()
+    B, T, H, D = q.shape
+    lse = torch.zeros(B, H, T)
+    f = fa.flash_attention
+    counts = (f.dq_launch_count, f.dkv_launch_count, f.bwd_staged_count)
     fa._bind.cache_clear()
     try:
         for _ in range(2):
-            fa._launch_bwd("dq_sym", q, k, v, do, lse, dsum, (torch.empty_like(q),))
-            fa._launch_bwd("dkv_sym", q, k, v, do, lse, dsum, (torch.empty_like(k), torch.empty_like(v)))
-        bound = [fa._bind("flash_attention_bwd", s, n) for s, n in (("dq_sym", 7), ("dkv_sym", 8))]
+            dq, dk, dv = fa._launch_bwd(q, k, v, o, lse, do)
+        bound = [fa._bind("flash_attention_bwd", s, 8) for s in symbols]
     finally:
         fa._bind.cache_clear()
     assert loads == ["flash_attention_bwd"] * 2  # once per entry point
-    assert [len(fn.argtypes) for fn in bound] == [7 + 7 + 3, 8 + 7 + 3]
-    assert [name for name, _ in calls] == ["dq_sym", "dkv_sym"] * 2
-    for name, args in calls:
-        n_pointers = 7 if name == "dq_sym" else 8
-        assert args[n_pointers:n_pointers + 7] == (3, 4, 77, 200, D, 48, width)
+    assert [len(fn.argtypes) for fn in bound] == [8 + 6 + 3] * 2
+    staged = 0 if case == "aligned" else 2
+    assert (f.dq_launch_count, f.dkv_launch_count, f.bwd_staged_count) == (
+        counts[0] + 2, counts[1] + 2, counts[2] + staged)
+    assert [name for name, _ in calls] == list(symbols) * 2
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    for (_, dq_args), (_, dkv_args) in zip(calls[0::2], calls[1::2]):
+        for args, n_inputs in ((dq_args, 5), (dkv_args, 4)):
+            assert args[8:14] == (B, H, T, k.shape[1], D, 48)
+            assert all(ptr % 16 == 0 for ptr in args[:4]) and args[15:] == (
+                pytest.approx(1.0 / np.sqrt(D)), 0)
+            strides = list(args[14])
+            assert len(strides) == 18 and all(st % 8 == 0 for st in strides[:3 * n_inputs])
+        # dq's inputs q, k, v, O, dO; dkv's q, k, v, dO; and the Dsum dq wrote
+        assert dq_args[4] % 16 == 0 and dkv_args[:3] == dq_args[:3]
+        assert dkv_args[3] == dq_args[4] and dkv_args[4] == dq_args[5] == lse.data_ptr()
+        assert dkv_args[5] == dq_args[7]
+        passed_as_is = {x.data_ptr() for x in (q, k, v, o, do) if fa.tma_ready(x)}
+        assert passed_as_is <= set(dq_args[:5])
+        assert (do.data_ptr() in dq_args[:5]) == (case == "aligned")
+
+
+@pytest.mark.parametrize("T,S,D", [(64, 64, 40), (77, 200, 42)])
+def test_dq_reference_returns_the_rowsum_dsum(T, S, D):
+    """dq_reference takes O and returns (dQ, Dsum) with Dsum exactly
+    softmax_grad_rowsum(O, dO): the Dsum that dkv_reference, and on the
+    card the dkv kernel, then takes.  flash_attention_bwd_dq on CPU tensors
+    returns the same."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, T, S, 3, D, seed=T + D))
+    do = torch.from_numpy(np.random.default_rng(D).standard_normal((2, T, 3, D)).astype(np.float32))
+    o, lse = fa.attention_reference(q, k, v)
+    dq, dsum = fa.dq_reference(q, k, v, do, lse, o)
+    assert dsum.shape == (2, 3, T) and dsum.dtype == torch.float32
+    assert torch.equal(dsum, fa.softmax_grad_rowsum(o, do))
+    ref_dq = fa.attention_backward_reference(q, k, v, o, lse, do)[0]
+    assert torch.equal(dq, ref_dq)
+    got = fa.flash_attention_bwd_dq(q, k, v, do, lse, o)
+    assert torch.equal(got[0], dq) and torch.equal(got[1], dsum)
 
 
 def test_library_path_changes_with_every_shared_header(tmp_path, monkeypatch):
@@ -383,7 +405,7 @@ def test_entry_points_are_bound_once(monkeypatch):
     finally:
         fa._bind.cache_clear()
     assert again is first and loads == ["lib"]
-    assert len(first.argtypes) == 5 + 7 + 3
+    assert len(first.argtypes) == 5 + 6 + 3
 
 
 def test_wrapper_refuses_mixed_devices():
@@ -469,4 +491,4 @@ def test_backward_refuses_mixed_devices():
 
 def _counts():
     f = fa.flash_attention
-    return f.launch_count, f.dq_launch_count, f.dkv_launch_count
+    return f.launch_count, f.dq_launch_count, f.dkv_launch_count, f.bwd_staged_count
