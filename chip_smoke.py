@@ -30,10 +30,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
 6. sampling: the image -> mesh path's four sampling phases at full width
    (stage 1 views 0-3, stage 2 of view 0, stage 1 of the second ring at the
    fallback polar angle of 90 degrees, stage 2 of the other 7 views), with
-   seeded non-zero weights.  Run twice; launches are counted on the second;
+   seeded non-zero weights, once (phase 25's stage probe times each stage
+   warm, and its throughput probe holds repeated runs bit for bit);
 7. elevation: LoFTR (ResNet-FPN 8_2, 4 + 1 linear-attention layer pairs,
    dual softmax, 5x5 fine windows, K=1024) at 480^2 with seeded weights on
-   the 4 stage-2 views of view 0 of the warm sampling run: the card's f32
+   the 4 stage-2 views of view 0 of the sampling run: the card's f32
    matcher against the CPU's on one pair (backbone features, confidence
    matrix, the slates at the first threshold that keeps 64 matches), the
    view against itself (identity matches), the two-stage pose sweep on
@@ -52,11 +53,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
    field at 64^3), and the bf16 field's signs against the f32 one's;
 9. pipeline: the port's own entry point, One2345Pipeline(PipelineConfig())
    .run(skip_preprocess=True, output_format=".obj") on the weights of
-   phases 6 to 8, once (phase 6 holds warm sampling against cold): seconds
+   phases 6 to 8, once (phase 25 holds repeated runs bit for bit): seconds
    per span of the runner, the
    estimated elevation and the second ring it picked, 4000 K1 launches, the
    mesh checks of phase 8, every artifact (8 + 32 PNGs, pose.json,
-   mesh.ply, mesh.obj) written (one PNG read back) and then removed;
+   mesh.ply, mesh.obj) written (one PNG read back) and then removed, and a
+   SHA-256 of its stage images and mesh (two checkouts compare by it);
 10. preprocess: SAM ViT-H (width 1280, 16 heads, 1024^2) with seeded
    weights: at depth 2 (block 0 windowed, block 1 global) the card's f32
    stage against the CPU's (the embedding, the mask of one box prompt); the
@@ -85,11 +87,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
    bf16 output within one rounding; the full-width int8 UNet (B=2) card
    against CPU, and against the card's bf16 UNet (the quantization error);
    the PLMS, DPM-Solver++ and img2img loops at [8, 32, 32, 4] card f32
-   against CPU f32; int8 and bf16 UNet evals at B=8 and B=56 timed;
+   against CPU f32; int8 and bf16 UNet evals at B=8 and B=56 timed; then
+   examples/torch_fast_mode_probe.py --sampler dpmpp --warmups 0 (the CLI
+   runs warmed the kernels) on the probes' pipeline (the --sampler dpmpp
+   config with SAM, on the weights of phases 6 to 10): three runs of the
+   JAX probes' first 512^2 input at seeds 1-3, 3 x 1792 K1, best and median
+   seconds;
+25. (after 12, before 13) probes, on phase 12's probe pipeline: (b)
+   examples/torch_stage_probe.py --repeats 1 --sam --warmups 0, one line
+   per stage; (a) examples/torch_throughput_probe.py --warmups 0 on [a, b,
+   a] at seeds [1, 2, 1], one request at a time (the sequential run calls)
+   and two in flight (each on a CUDA stream of its own): every output
+   (stage images, elevation, vertices, faces, colours) of the two in
+   flight bit for bit equal to the sequential runs', and the sequential
+   runs of request a bit for bit equal to each other and to the fast-mode
+   probe's run at seed 1; K1 exactly 3 x 1792 per call; seconds per mesh
+   sustained and peak memory of each.  The train probe's step timing
+   (examples/torch_train_probe.py) runs in phases 13 and 14, the profile
+   twin in phase 20;
 13. train: the Zero123 finetune step at full width (Zero123Trainer, B=8,
    remat, f32 weights, bf16 autocast): one cold step and five warm ones,
    each timed, its launches counted, and the first one's gradients, params
-   and EMA checked;
+   and EMA checked; then torch_train_probe.zero123_steps on the same
+   trainer and batch (one warm-up step and 2 timed: K1 / dq / dkv 96 / 48 /
+   48, the JSON record with peak memory);
 14. recon train: reconstruction training on phase 9's warm scene (its
    stage1_8/, stage2_8/ and pose.json, kept under _smoke_scenes/) with
    seeded weights of the 8 networks (lod0 and lod1): (a) one
@@ -105,7 +126,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (c) the lod1 reconstruct (ReconStage(ReconConfig(num_lods=2)), R=256)
    on the trained weights cold and warm: seconds per span, the mesh
    checks, the pruned occupancy card against CPU, the depth-filtered
-   pruning once with its depth maps card against CPU;
+   pruning once with its depth maps card against CPU; (d)
+   torch_train_probe.recon_steps on (b)'s trainer and the phase's scene
+   (one warm-up lod1 step and 2 timed, the JSON record);
 15. finetune: FinetuneTrainer (the per-shape -ft mode) at ReconConfig() on
    phase 14's scene with phase 8's lod0 weights: the conditional volume of
    the 32 source views, 20 steps of 512 rays cycling the 33 views (lr
@@ -158,14 +181,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
    holding copies of phase 2's libraries: it prints that directory, builds
    nothing there or in the checkout's, and its artifacts equal the A/B's
    dpmpp run byte for byte; (c) in phase 22's spawned world, after phase
-   22's work: cli.main --sampler dpmpp --params on both gloo ranks (1792
-   K1 on each, rank 0 alone writes), held to a one-card run that samples
-   each batch in the ranks' two halves, then server.serve on both ranks
+   22's work: cli.main --sampler dpmpp --steps 10 10 --params on both gloo
+   ranks (640 K1 on each, rank 0 alone writes), held to a one-card run
+   that samples each batch in the ranks' two halves, then server.serve on both ranks
    (rank 0 on loopback, rank 1 following) with /preprocess,
    /estimate_elevation and /generate_mesh from a client thread (the mesh
    read back), stopped by SIGINT; (d) examples/torch_walkthrough.py and
-   examples/torch_demo.py with --params on the card (4000 K1 each, their
-   artifacts read back); seconds per part;
+   examples/torch_demo.py with --params and --sampler dpmpp on the card
+   (1792 K1 each, their artifacts read back); seconds per part;
 21. (after 18, before 19) multicard: the multi-card paths in a world of one
    over NCCL (tcp://localhost): (a) the sharded Zero123 step
    (make_sharded_train_step, FSDP2) at DiffusionConfig(), B=8, on a
@@ -212,7 +235,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
    ms of marching tets; one card QConv2d call of each kind (the integer
    GEMM inside its range, no conv kernel) and the int8 and bf16 UNet evals
    at B=8 and B=56: device ms by family, and the int8 GEMMs' and the
-   quantize and dequantize passes' shares; last, one warm full-width lod1
+   quantize and dequantize passes' shares, then
+   examples/torch_profile_pipeline.py --warmups 0 on a --sampler dpmpp
+   pipeline cut to 5 + 5 steps without SAM (the kernels warm from phase
+   25; a 30 / 25-step trace is ~360 MiB): the Chrome trace parsed, the
+   run's six spans and K1's kernel in it, its size printed, the file
+   removed; last, one warm full-width lod1
    train step of phase 14: device ms by family, in its forward, backward
    and optimizer ranges, the backward's share, the busy share.
 
@@ -222,7 +250,9 @@ steps and, for K1, its sharded sampler and phase 24's two ranks), the
 nvidia-smi line, and the result line.
 Needs one card; writes nothing outside its checkout (the pipeline's and
 the CLI's files go to _smoke_out/, removed at the end of phases 9, 11 and
-12; the training scene, the finetune, Zero123 and eval data and runs, the
+12, and the profile twin's trace to _smoke_out/trace/, removed after its
+check;
+the training scene, the finetune, Zero123 and eval data and runs, the
 reference-format files and phase 24's runs to _smoke_scenes/, removed
 after phase 24).
 """
@@ -1141,8 +1171,7 @@ def phase_sampling(stage, smi):
     batch = {"stage1": 8, "stage2_view0": 8, "stage1_ring2": 8, "stage2_rest": 56}
     flops = sum(n * unet_flops_per_eval(batch[k]) for k, n in evals.items())
     expected = 16 * sum(evals.values())
-    first = None
-    for run in ("cold", "warm"):
+    for run in ("cold",):  # once: phase 25's stage probe times each stage warm
         torch.cuda.reset_peak_memory_stats()
         timer = Timer(device="cuda")
         flash_attention.launch_count = flash_attention.staged_count = 0
@@ -1160,8 +1189,6 @@ def phase_sampling(stage, smi):
         spans = timer.report()
         total = timer.total()
         inside = float(((s2 > 0.01) & (s2 < 0.99)).float().mean())
-        rerun = "" if first is None else f", max |warm - cold| {float((s2 - first).abs().max()):.3e}"
-        first = s2
         log(
             f"phase sampling ({run}): "
             + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
@@ -1169,7 +1196,7 @@ def phase_sampling(stage, smi):
             f"MFU {flops / total / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s | "
             f"flash_attention launches {launches} (expected {expected}) | "
             f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
-            f"stage2 pixels in (0.01, 0.99) {inside:.3f}{rerun} | {smi}"
+            f"stage2 pixels in (0.01, 0.99) {inside:.3f} | {smi}"
         )
     return launches, s2
 
@@ -1347,10 +1374,25 @@ def phase_elevation(views, smi):
     return weights, est
 
 
+def result_sha256(res) -> str:
+    """SHA-256 of a run's stage images (f32 bytes), vertices and faces: two
+    checkouts' runs on the same weights compare bit for bit by it."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for x in (res.stage1_images, res.stage2_images):
+        h.update(x.float().contiguous().cpu().numpy().tobytes())
+    for x in (res.vertices, res.faces):
+        h.update(np.ascontiguousarray(x).tobytes())
+    return h.hexdigest()
+
+
 def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
     """One2345Pipeline(PipelineConfig()).run at full width on one card, with
-    the seeded weights of phases 6 to 8, once (cold; phase 6 holds warm
-    sampling against cold, bit for bit): seconds per span, the elevation
+    the seeded weights of phases 6 to 8, once (cold; phase 25 holds repeated
+    runs bit for bit): seconds per span, the elevation
     and the ring it picked, K1 launches, the mesh, the artifacts (read
     back), peak memory.  Returns the mesh (for the eval phase)."""
     import shutil
@@ -1374,7 +1416,7 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
     image = input_image()
     expected = 16 * (76 + 49 + 76 + 49)
     try:
-        run = "cold"  # one run: phase 6 holds warm against cold
+        run = "cold"  # one run: phase 25 holds repeated runs against each other
         out_dir = os.path.join(PIPELINE_OUT, run)
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launch_count = flash_attention.staged_count = 0
@@ -1413,6 +1455,8 @@ def phase_pipeline(zero123_params, recon_p, loftr_w, smi):
         ref = (res.stage1_images[k].cpu().numpy() * 255).astype(np.uint8)
         if not np.array_equal(png, ref):
             fail(f"pipeline {run}: stage1_8/{sel[k]}.png does not read back as its image")
+        log(f"phase pipeline ({run}): sha256 of the stage images and mesh "
+            f"{result_sha256(res)}")
         log(
             f"phase pipeline ({run}): " + ", ".join(
                 f"{k} {v:.4f} s" for k, v in res.timings.items())
@@ -1920,12 +1964,15 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
     phase-11 PNG with --sampler dpmpp --quant int8 and with --sampler dpmpp,
     one PLMS stage-1 call, the quantized convs and the int8 UNet card
     against CPU, the sampler update math card against CPU, and the int8 and
-    bf16 UNet evals timed.  Returns the card's int8 UNet and the --sampler
-    dpmpp run (``cli_run``'s result)."""
+    bf16 UNet evals timed; the fast-mode probe twin on the probes'
+    pipeline.  Returns the card's int8 UNet, the --sampler dpmpp run
+    (``cli_run``'s result), the probes' pipeline and the fast-mode probe's
+    run at seed 1 (phase 25's)."""
     import shutil
 
     import torch
 
+    from examples import torch_fast_mode_probe
     from one2345_tpu_torch.diffusion import quantize as q
     from one2345_tpu_torch.diffusion.zero123 import STAGE1_DELTA_X, STAGE1_DELTA_Y
     from one2345_tpu_torch.ops.flash_attention import flash_attention
@@ -1961,6 +2008,27 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
             )
     finally:
         shutil.rmtree(PIPELINE_OUT, ignore_errors=True)
+
+    # the fast-mode probe twin on the probes' pipeline, which phase 25 goes on
+    # with; the CLI runs above warmed the kernels at its shapes
+    t0 = time.perf_counter()
+    pipe = probe_pipeline(params, sam_w)
+    built = time.perf_counter() - t0
+    flash_attention.launch_count = flash_attention.staged_count = 0
+    flash_attention.bwd_staged_count = 0
+    q.int8_matmul.launch_count = 0
+    record, probe_runs = torch_fast_mode_probe.main(["--sampler", "dpmpp", "--warmups", "0"],
+                                                    pipeline=pipe)
+    k1 = unstaged("fast-mode probe")
+    if k1 != 3 * expected or q.int8_matmul.launch_count or record["mode"] != "dpmpp 30/25":
+        fail(f"fast-mode probe: K1 {k1} (expected {3 * expected}), int8 GEMMs "
+             f"{q.int8_matmul.launch_count}, {record}")
+    for res in probe_runs:
+        check_mesh("fast-mode probe", {"vertices": res.vertices, "faces": res.faces,
+                                       "colors": res.colors})
+    log(f"phase fast modes: examples/torch_fast_mode_probe.py --sampler dpmpp --warmups 0 on "
+        f"the probes' pipeline (SAM on, built in {built:.1f} s): {json.dumps(record)} | K1 {k1} "
+        f"(expected {3 * expected}) | {smi}")
 
     # one full-width PLMS stage-1 call: views 0-3, 75 steps
     img = torch.as_tensor(input_image(), device="cuda") * 2.0 - 1.0
@@ -2094,15 +2162,16 @@ def phase_fast_modes(stage, unet_weights, params, sam_w, ddim_run, smi):
                 times.append(f"B={B} {label} {time_ms(lambda: net(xb, tb, cb), 10, warmup=2):.2f}")  # noqa: B023
     log("phase fast modes: UNet eval ms (CUDA events, 10 evals after 2): " + ", ".join(times)
         + f" | {smi}")
-    return card_unet, runs["--sampler dpmpp"]
+    return card_unet, runs["--sampler dpmpp"], pipe, probe_runs[0]
 
 
-def phase_fast_modes_profile(stage, card_unet, smi):
+def phase_fast_modes_profile(stage, card_unet, stages, smi):
     """Profiled last: the kernels one card QConv2d call launches (the int8
     GEMM present, no conv kernel), and the int8 and bf16 UNet evals' device
     ms at B=8 and B=56 by kernel family, with the int8 GEMMs' and the
     quantize and dequantize passes' shares (kernels placed by QConv2d's
-    profiler ranges)."""
+    profiler ranges); then the profile twin's trace of a dpmpp run
+    (``probes_profile``)."""
     import bisect
 
     import torch
@@ -2166,6 +2235,7 @@ def phase_fast_modes_profile(stage, card_unet, smi):
                 + (", ".join(f"{r} {v:.2f} ms ({v / total:.3f})" for r, v in shares.items())
                    + " | " if label == "int8" else "")
                 + f"by family (ms): {by_family(families)} | {smi}")
+    probes_profile(stages, smi)
 
 
 def phase_sam_profile(stage, rgb, smi):
@@ -2517,9 +2587,11 @@ def train_batch(B: int):
 
 
 def phase_train(stage, params, smi):
-    """Six full-width finetune steps; returns the backward kernels' launches."""
+    """Six full-width finetune steps, then the train probe's step timing on
+    the same trainer; returns the backward kernels' launches of the six."""
     import torch
 
+    from examples import torch_train_probe
     from one2345_tpu_torch.core.profiling import unet_flops_per_eval
     from one2345_tpu_torch.ops.flash_attention import flash_attention as f
     from one2345_tpu_torch.training.zero123_trainer import Zero123Trainer
@@ -2579,6 +2651,14 @@ def phase_train(stage, params, smi):
         f"{max(warm):.4f}), {TRAIN_BATCH / mean:.2f} samples/s, UNet MFU "
         f"{flops / mean / PEAK_BF16_FLOPS:.4f} | {smi}"
     )
+    f.launch_count = f.staged_count = f.dq_launch_count = f.dkv_launch_count = 0
+    f.bwd_staged_count = 0
+    record = torch_train_probe.zero123_steps(trainer, batch, iters=2)
+    counts = (unstaged("train probe"), f.dq_launch_count, f.dkv_launch_count)
+    if counts != (3 * 32, 3 * 16, 3 * 16) or not record["loss_finite"]:
+        fail(f"train probe: K1 / dq / dkv {counts} in 3 steps, expected (96, 48, 48); {record}")
+    log(f"phase train: examples/torch_train_probe.py's zero123_steps on this trainer and batch "
+        f"(one warm-up step, 2 timed): {json.dumps(record)} | K1 / dq / dkv {counts} | {smi}")
     return totals
 
 
@@ -2940,10 +3020,12 @@ def recon_lod1(trained, scene_images, cams, smi):
 def phase_recon_train(smi):
     """Phase 14: reconstruction training on phase 9's scene, (a) card
     against CPU, (b) train_recon.main at full width, (c) the lod1
-    reconstruct on the trained weights.  Returns (trainer, a full scene)
-    for the profile of phase 20; the scene stays for phase 15."""
+    reconstruct on the trained weights, (d) the train probe's step timing
+    on (b)'s trainer.  Returns (trainer, a full scene) for the profile of
+    phase 20; the scene stays for phase 15."""
     import torch
 
+    from examples import torch_train_probe
     from one2345_tpu_torch.training.data import ReconScenesDataset
 
     t_phase = time.perf_counter()
@@ -2963,6 +3045,11 @@ def phase_recon_train(smi):
         "96^3, 64 rays, full widths: " + recon_train_check(params, scene))
     trainer = recon_train_run(params, smi)
     recon_lod1(trainer.state_dict()["params"], loaded["images"][1:], loaded["cameras"], smi)
+    record = torch_train_probe.recon_steps(trainer, scene, iters=2)
+    if not record["loss_finite"]:
+        fail(f"recon train probe: {record}")
+    log(f"phase recon train (d): examples/torch_train_probe.py's recon_steps on (b)'s trainer "
+        f"(lod1) and the phase's scene (one warm-up step, 2 timed): {json.dumps(record)} | {smi}")
     log(f"phase recon train: {time.perf_counter() - t_phase:.1f} s in all")
     return trainer, scene
 
@@ -4858,6 +4945,17 @@ def phase_surface_runbook(ckpt_dir: str, smi) -> dict:
     return {"work": work, "params": params_path, "img": img_path, "raw": raw, "secs": secs}
 
 
+SURFACE_STEPS = (10, 10)  # phase 24 (c)'s dpmpp steps: its ranks' CLI, server and reference
+
+
+def dpmpp_evals(steps) -> int:
+    """UNet evals of one dpmpp run at (stage 1, stage 2) ``steps``: one per
+    schedule entry, each stage sampled twice."""
+    from one2345_tpu_torch.diffusion.schedule import make_ddim_schedule
+
+    return 2 * sum(len(make_ddim_schedule(n).timesteps) for n in steps)
+
+
 def halves(sample):
     """``Zero123Stage._sample`` as two ranks of a ``data`` mesh run it: the
     view batch padded to even (the last view repeated), each half sampled
@@ -4879,7 +4977,8 @@ def halves(sample):
 
 def surface_rank(rank: int, surface: dict, port: int) -> dict:
     """Phase 24 (c) on one of phase 22's gloo ranks: cli.main --sampler
-    dpmpp --params <the runbook's file> in the group (rank 0 writes), then
+    dpmpp --steps 10 10 (``SURFACE_STEPS``) --params <the runbook's file>
+    in the group (rank 0 writes), then
     the HTTP server over the same weights (server.serve: rank 0 binds
     loopback, rank 1 follows) with one /preprocess, /estimate_elevation
     and /generate_mesh from a client thread, which stops it with SIGINT as
@@ -4902,13 +5001,14 @@ def surface_rank(rank: int, surface: dict, port: int) -> dict:
     f.launch_count = f.staged_count = f.bwd_staged_count = 0
     t0 = time.perf_counter()
     res = cli.main(["--img_path", surface["img"], "--params", surface["params"], "--sampler",
-                    "dpmpp", "--out_dir", out_dir, "--seed", "0"], device="cuda:0")
+                    "dpmpp", "--steps", *map(str, SURFACE_STEPS), "--out_dir", out_dir,
+                    "--seed", "0"], device="cuda:0")
     cli_s, cli_k1 = time.perf_counter() - t0, unstaged(f"surface rank {rank} cli")
     out = {"cli_s": cli_s, "cli_k1": cli_k1, "stage1": res.stage1_images.float().cpu().numpy(),
            "stage2": res.stage2_images.float().cpu().numpy(), "vertices": res.vertices,
            "faces": res.faces, "elevation": res.elevation, "wrote": os.path.isdir(out_dir)}
     del res
-    cfg = cli.apply_fast_modes(PipelineConfig(), sampler="dpmpp")
+    cfg = cli.apply_fast_modes(PipelineConfig(), sampler="dpmpp", steps=SURFACE_STEPS)
     service = One2345Service(One2345Pipeline(cfg, checkpoint.restore(surface["params"]),
                                              device="cuda:0"))
     f.launch_count = f.staged_count = f.bwd_staged_count = 0
@@ -4957,8 +5057,8 @@ def surface_rank(rank: int, surface: dict, port: int) -> dict:
 
 def surface_reference(surface: dict):
     """The one-card run phase 24 (c)'s two ranks are held to: cli.main's
-    config with --sampler dpmpp on the runbook's file and PNG, each sampling
-    call in the two halves the ranks sample (``halves``)."""
+    config with --sampler dpmpp --steps 10 10 on the runbook's file and
+    PNG, each sampling call in the two halves the ranks sample (``halves``)."""
     import torch
 
     from one2345_tpu_torch.core import checkpoint
@@ -4967,8 +5067,8 @@ def surface_reference(surface: dict):
     from one2345_tpu_torch.pipeline.runner import One2345Pipeline
     from one2345_tpu_torch.utils.png import read_png, to_rgba
 
-    pipe = One2345Pipeline(apply_fast_modes(PipelineConfig(), sampler="dpmpp"),
-                           checkpoint.restore(surface["params"]), device="cuda:0",
+    cfg = apply_fast_modes(PipelineConfig(), sampler="dpmpp", steps=SURFACE_STEPS)
+    pipe = One2345Pipeline(cfg, checkpoint.restore(surface["params"]), device="cuda:0",
                            auto_mesh=False)
     pipe.zero123._sample = halves(pipe.zero123._sample)
     res = pipe.run(to_rgba(read_png(surface["img"])), seed=0)
@@ -4997,7 +5097,7 @@ def surface_gloo_check(results: dict, reference, smi):
                      and np.array_equal(r["faces"], reference.faces))
         if max(errs) > MC_IMG_TOL or (same and not mesh_same) or \
                 r["elevation"] != reference.elevation or r["wrote"] != (rank == 0) or \
-                r["cli_k1"] != 16 * DPMPP_EVALS or not r["served_k1"]:
+                r["cli_k1"] != 16 * dpmpp_evals(SURFACE_STEPS) or not r["served_k1"]:
             fail(f"surface (c) rank {rank}: images max abs {errs} from the one-card halves "
                  f"reference, mesh equal {mesh_same}, elevation {r['elevation']} / "
                  f"{reference.elevation}, wrote {r['wrote']}, K1 {r['cli_k1']} / served "
@@ -5027,7 +5127,8 @@ def surface_gloo_check(results: dict, reference, smi):
 def phase_surface_examples(surface: dict, smi):
     """Phase 24 (d): examples/torch_walkthrough.main and
     examples/torch_demo.main on the card with --params the runbook's file
-    and its input PNG: 4000 K1 launches each, their artifacts read back."""
+    and its input PNG, at --sampler dpmpp (the DDIM path runs in parts (a)
+    and (b)): 1792 K1 launches each, their artifacts read back."""
     import numpy as np
 
     from examples import torch_demo, torch_walkthrough
@@ -5035,14 +5136,14 @@ def phase_surface_examples(surface: dict, smi):
     from one2345_tpu_torch.recon.mesh_extract import load_ply
     from one2345_tpu_torch.utils.png import read_png
 
-    expected = 16 * (76 + 49 + 76 + 49)
+    expected = 16 * DPMPP_EVALS
     secs = {}
     walk = os.path.join(SURFACE_OUT, "walkthrough")
     flash_attention.launch_count = flash_attention.staged_count = 0
     flash_attention.bwd_staged_count = 0
     t0 = time.perf_counter()
     summary = torch_walkthrough.main(["--img", surface["img"], "--out", walk, "--params",
-                                      surface["params"]])
+                                      surface["params"], "--sampler", "dpmpp"])
     secs["walkthrough"] = time.perf_counter() - t0
     k1 = unstaged("walkthrough")
     verts, faces, _ = load_ply(os.path.join(walk, "6_mesh.ply"))
@@ -5057,7 +5158,7 @@ def phase_surface_examples(surface: dict, smi):
     flash_attention.bwd_staged_count = 0
     t0 = time.perf_counter()
     res = torch_demo.main(["--img_path", surface["img"], "--out_dir", demo, "--params",
-                           surface["params"]])
+                           surface["params"], "--sampler", "dpmpp"])
     secs["demo"] = time.perf_counter() - t0
     k1 = unstaged("demo")
     v, fc, _ = load_ply(os.path.join(demo, "mesh.ply"))
@@ -5067,13 +5168,146 @@ def phase_surface_examples(surface: dict, smi):
             not os.path.isfile(os.path.join(demo, "pose.json")):
         fail(f"surface (d): demo K1 {k1}, mesh read back equal "
              f"{np.array_equal(fc, res.faces)}, {n_png} PNGs")
-    log(f"phase surface (d): examples/torch_walkthrough.py --params (SAM on, DDIM) "
+    log(f"phase surface (d): examples/torch_walkthrough.py --params --sampler dpmpp (SAM on) "
         f"{secs['walkthrough']:.1f} s, K1 {expected}, summary {json.dumps(summary)}, its 5 "
-        f"artifacts read back; examples/torch_demo.py --params {secs['demo']:.1f} s, K1 "
+        f"artifacts read back; examples/torch_demo.py --params --sampler dpmpp "
+        f"{secs['demo']:.1f} s, K1 "
         f"{expected}, elevation {res.elevation}, {len(res.vertices)} vertices, mesh.ply, 40 "
         f"PNGs and pose.json read back | seconds of phase 24: "
         + ", ".join(f"{k} {v:.1f}" for k, v in {**surface["secs"], **secs}.items())
         + f" | {smi}")
+
+
+PROBE_SEEDS = ["1", "2", "1"]  # requests [a, b, a]: seed s takes the s-th probe input
+PROBE_OUT = os.path.join(REPO, "_smoke_out", "trace")
+PROFILE_STEPS = (5, 5)  # the traced run's dpmpp steps
+
+
+def probe_pipeline(stages: dict, sam_w: dict | None = None, steps=None):
+    """A probes' pipeline: the fast-mode config of ``--sampler dpmpp`` (30 /
+    25 steps unless ``steps``), with SAM on its weights when ``sam_w`` is
+    given, on the weights of phases 6 to 10 (no safety weights, as the JAX
+    probes run)."""
+    from one2345_tpu_torch.core.config import PipelineConfig
+    from one2345_tpu_torch.pipeline.cli import apply_fast_modes
+    from one2345_tpu_torch.pipeline.runner import One2345Pipeline
+
+    cfg = apply_fast_modes(PipelineConfig(), sampler="dpmpp", steps=steps)
+    params = dict(stages) if sam_w is None else dict(stages, sam=sam_w)
+    pipe = One2345Pipeline(cfg, params=params, use_sam=sam_w is not None, device="cuda")
+    _ = pipe.zero123, pipe.recon, pipe.elevation_estimator
+    if sam_w is not None:
+        _ = pipe.sam
+    return pipe
+
+
+def result_difference(a, b) -> float:
+    """The largest difference of two runs' outputs: max abs over the stage
+    images and the elevation, inf when the meshes differ."""
+    import numpy as np
+
+    if not all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("vertices", "faces", "colors")):
+        return math.inf
+    return max(abs(a.elevation - b.elevation),
+               float((a.stage1_images - b.stage1_images).abs().max()),
+               float((a.stage2_images - b.stage2_images).abs().max()))
+
+
+def phase_probes(pipe, first_a, smi):
+    """The probe twins at full width (phase 25) on phase 12's probe pipeline
+    (dpmpp 30 / 25 with SAM, warm from the fast-mode probe's runs): (b) the
+    stage probe (--repeats 1 --sam --warmups 0); (a) the throughput probe
+    on [a, b, a] at seeds [1, 2, 1] without a warm-up run of its own, one
+    request at a time (the sequential ``run`` calls), then two in flight,
+    each on a stream of its own: every run's outputs bit for bit equal to
+    the sequential ones, the sequential runs of request a to each other and
+    to ``first_a`` (the fast-mode probe's run of request a at seed 1); K1
+    exactly 3 x 1792 per call."""
+    import torch
+
+    from examples import torch_stage_probe, torch_throughput_probe
+    from one2345_tpu_torch.ops.flash_attention import flash_attention as f
+
+    records = torch_stage_probe.main(["--sampler", "dpmpp", "--repeats", "1", "--sam",
+                                      "--warmups", "0"], pipeline=pipe)
+    want = ["preprocess_sam", "stage1_ring4", "stage2_view0", "elevation", "stage2_rest",
+            "reconstruct", "end_to_end"]
+    if [r["stage"] for r in records] != want or not all(
+            0 < r["best_s"] <= r["mean_s"] for r in records):
+        fail(f"probes (b): stage lines {records}")
+    log("phase probes (b) stage probe --repeats 1 --sam --warmups 0 (dpmpp): "
+        + ", ".join(f"{r['stage']} {r['best_s']:.4f} s" for r in records) + f" | {smi}")
+
+    flags = ["--sampler", "dpmpp", "--seeds", *PROBE_SEEDS, "--warmups", "0"]
+    expected = len(PROBE_SEEDS) * 16 * DPMPP_EVALS
+    runs = {}
+    for in_flight in ("1", "2"):
+        torch.cuda.synchronize()
+        f.launch_count = f.staged_count = f.bwd_staged_count = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        record, results = torch_throughput_probe.main(flags + ["--in_flight", in_flight],
+                                                      pipeline=pipe)
+        wall = time.perf_counter() - t0
+        launches = unstaged(f"probes in_flight {in_flight}")
+        if launches != expected:
+            fail(f"probes in_flight {in_flight}: K1 launched {launches} times, expected "
+                 f"{expected}")
+        runs[in_flight] = (record, results)
+        log(f"phase probes (a) in_flight {in_flight}: {json.dumps(record)} | K1 {launches} "
+            f"(expected {expected}) | call {wall:.1f} s | peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+    seq, par = runs["1"][1], runs["2"][1]
+    for res in seq:
+        check_mesh("probes", {"vertices": res.vertices, "faces": res.faces, "colors": res.colors})
+    # bit for bit: no op of `run` is known to differ between two runs at one seed
+    pairs = {"sequential a twice": (seq[2], seq[0]),
+             "sequential a against the fast-mode probe's": (seq[0], first_a),
+             **{f"in flight request {i}": (p, q) for i, (p, q) in enumerate(zip(par, seq))}}
+    diffs = {label: result_difference(a, b) for label, (a, b) in pairs.items()}
+    if any(d != 0 for d in diffs.values()):
+        fail(f"probes (a): outputs not bit for bit equal: {diffs} (max abs of the stage images "
+             f"and elevation; inf: another mesh)")
+    secs = {k: r["secs_per_mesh_sustained"] for k, (r, _) in runs.items()}
+    log(f"phase probes (a): stage images, elevation, vertices, faces and colours bit for bit "
+        f"equal ({', '.join(diffs)}) | s/mesh sustained at in_flight 1 / 2 {secs['1']} / "
+        f"{secs['2']} | {smi}")
+
+
+def probes_profile(stages: dict, smi):
+    """The profile twin in phase 20, with the profiles: on a dpmpp pipeline
+    cut to 5 + 5 steps (the trace of a 30 / 25-step run is ~360 MiB),
+    without SAM, no warm-up run (phase 25 ran every kernel at these
+    shapes); its Chrome trace parsed, the run's six spans and K1's kernel
+    in it; the file's size printed, then the file removed."""
+    import shutil
+
+    from examples import torch_profile_pipeline
+
+    pipe = probe_pipeline(stages, steps=PROFILE_STEPS)
+    try:
+        t0 = time.perf_counter()
+        path, spans = torch_profile_pipeline.main(
+            ["--sampler", "dpmpp", "--steps", *map(str, PROFILE_STEPS), "--warmups", "0",
+             "--trace_dir", PROBE_OUT], pipeline=pipe)
+        wall = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        parse = time.perf_counter() - t0
+        names = {e.get("name") for e in events}
+        k1 = sum(1 for n in names if n and "flash_fwd_kernel" in n)
+        if tuple(spans) != PIPELINE_SPANS or not set(PIPELINE_SPANS) <= names or not k1:
+            fail(f"profile twin: the trace lacks spans {set(PIPELINE_SPANS) - names} or K1 "
+                 f"({k1} names)")
+    finally:
+        shutil.rmtree(PROBE_OUT, ignore_errors=True)
+    log(f"phase fast modes profile: examples/torch_profile_pipeline.py --warmups 0 (dpmpp "
+        f"{PROFILE_STEPS[0]} / {PROFILE_STEPS[1]}): {size / 2**20:.1f} MiB Chrome trace, "
+        f"{len(events)} events, the six spans and K1's kernel in it; traced run and export "
+        f"{wall:.1f} s, parsed in {parse:.1f} s; removed | {smi}")
 
 
 def main() -> int:
@@ -5111,9 +5345,11 @@ def main() -> int:
     stages = {"zero123": params, "recon": recon_p, "loftr": loftr_w}
     cli_run_ddim = timed("cli", phase_cli, stages, sam_w, smi)
     launches = cli_run_ddim[2]
-    card_int8_unet, cli_run_dpmpp = timed("fast_modes", phase_fast_modes, stage, unet_weights,
-                                          stages, sam_w, cli_run_ddim, smi)
+    card_int8_unet, cli_run_dpmpp, probe_pipe, probe_first = timed(
+        "fast_modes", phase_fast_modes, stage, unet_weights, stages, sam_w, cli_run_ddim, smi)
     del cli_run_ddim
+    timed("probes", phase_probes, probe_pipe, probe_first, smi)
+    del probe_pipe, probe_first
     _, dq_launches, dkv_launches = timed("train", phase_train, stage, params, smi)
     try:
         recon_trainer, recon_scene = timed("recon_train", phase_recon_train, smi)
@@ -5138,7 +5374,7 @@ def main() -> int:
     timed("recon_profile", phase_recon_profile, recon_stage, recon_images, recon_cams, smi)
     timed("elevation_profile", phase_elevation_profile, estimator, views, smi)
     timed("sam_profile", phase_sam_profile, sam_stage, sam_image, smi)
-    timed("fast_modes_profile", phase_fast_modes_profile, stage, card_int8_unet, smi)
+    timed("fast_modes_profile", phase_fast_modes_profile, stage, card_int8_unet, stages, smi)
     timed("recon_train_profile", phase_recon_train_profile, recon_trainer, recon_scene, smi)
     log(f"phase seconds: {json.dumps(PHASE_SECONDS)}; the script "
         f"{time.perf_counter() - t_script:.1f} s")

@@ -4,11 +4,13 @@ The twin of ``examples/demo.py`` for ``one2345_tpu_torch``.  Run on a host
 with an NVIDIA card:
 
     python examples/torch_demo.py --img_path my_object.png --out_dir exp/demo \
-        [--params params.pt]
+        [--params params.pt] [--sampler ddim|plms|dpmpp]
 
 ``--params`` names a ``core.checkpoint`` file of the port
 (``utils/convert_cli.py`` writes one from the reference's checkpoints);
 without it the stages are seeded and SAM is off, as in the JAX demo.
+``--sampler`` (not in the JAX demo) picks the CLI's fast mode: ``dpmpp``
+runs DPM-Solver++(2M) at 30 / 25 steps, as ``pipeline.cli --sampler``.
 Artifacts land in the reference-compatible layout:
     exp/demo/mesh.ply        vertex-colored mesh
     exp/demo/stage1_8/       8 first-stage views
@@ -27,6 +29,7 @@ import argparse
 
 from one2345_tpu_torch.core.compile_cache import enable as enable_cache
 from one2345_tpu_torch.core.config import PipelineConfig
+from one2345_tpu_torch.pipeline.cli import apply_fast_modes
 from one2345_tpu_torch.pipeline.runner import One2345Pipeline
 from one2345_tpu_torch.utils.png import read_png, to_rgba
 
@@ -38,6 +41,7 @@ def main(argv=None, device=None):
     parser.add_argument("--out_dir", default="exp/demo")
     parser.add_argument("--mesh_resolution", type=int, default=256)
     parser.add_argument("--params", default=None, help="core.checkpoint file of stage params")
+    parser.add_argument("--sampler", choices=["ddim", "plms", "dpmpp"], default="ddim")
     args = parser.parse_args(argv)
 
     enable_cache()
@@ -47,7 +51,8 @@ def main(argv=None, device=None):
 
         params = checkpoint.restore(args.params)
 
-    pipe = One2345Pipeline(PipelineConfig(), params, use_sam=params is not None, device=device)
+    cfg = apply_fast_modes(PipelineConfig(), sampler=args.sampler)
+    pipe = One2345Pipeline(cfg, params, use_sam=params is not None, device=device)
     image = to_rgba(read_png(args.img_path))
     result = pipe.run(image, out_dir=args.out_dir, mesh_resolution=args.mesh_resolution)
 

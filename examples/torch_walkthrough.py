@@ -7,13 +7,14 @@ as the reference notebook shows them (preprocess -> stage 1 -> elevation
 -> stage 2 -> reconstruction):
 
     python examples/torch_walkthrough.py [--img input.png] [--out exp/walkthrough] \
-        [--params params.pt] [--tiny] [--device cpu]
+        [--params params.pt] [--tiny] [--device cpu] [--sampler ddim|plms|dpmpp]
 
 ``--tiny`` runs toy model sizes without SAM, as the JAX example's
 ``--tiny`` does; ``--device`` picks the device (the card by default;
-``--tiny --device cpu`` runs on the CPU in seconds).  ``--params`` names
-a ``core.checkpoint`` file of the port (``utils/convert_cli.py`` or
-``One2345Pipeline.save_params`` writes one).  Differences from the JAX
+``--tiny --device cpu`` runs on the CPU in seconds; ``--sampler``, not in
+the JAX example, picks the CLI's fast mode, e.g. ``dpmpp`` at 30 / 25
+steps).  ``--params`` names a ``core.checkpoint`` file of the port
+(``utils/convert_cli.py`` or ``One2345Pipeline.save_params`` writes one).  Differences from the JAX
 example: noise comes from the runner's integer phase seeds
 (``runner.phase_seeds(0)``), so the steps give what ``run(seed=0)`` gives;
 PNGs are written by the port's codec (``utils/png.py``); ``--tiny`` also
@@ -83,12 +84,14 @@ def main(argv=None):
                    help="toy model sizes without SAM: seconds, for CI and smoke runs")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--params", default=None, help="core.checkpoint file of the port")
+    p.add_argument("--sampler", choices=["ddim", "plms", "dpmpp"], default="ddim")
     args = p.parse_args(argv)
 
     import torch
 
     from one2345_tpu_torch.core.config import PipelineConfig
     from one2345_tpu_torch.geometry import cameras as cam
+    from one2345_tpu_torch.pipeline.cli import apply_fast_modes
     from one2345_tpu_torch.pipeline.runner import One2345Pipeline, phase_seeds, select_stage1b_plan
     from one2345_tpu_torch.utils.image import image_grid
     from one2345_tpu_torch.utils.png import read_png, to_rgba, write_png
@@ -97,7 +100,7 @@ def main(argv=None):
     t_all = time.perf_counter()
 
     # ------------------------------------------------------------------ config
-    cfg = tiny_config() if args.tiny else PipelineConfig()
+    cfg = apply_fast_modes(tiny_config() if args.tiny else PipelineConfig(), sampler=args.sampler)
     mesh_res = cfg.mesh_resolution
     params = None
     if args.params:

@@ -3,8 +3,9 @@
 Every span is also a ``torch.profiler.record_function`` range, as is each
 ``trace_annotation``, so a
 ``torch.profiler`` trace shows the same names.  PyTorch returns before the
-card finishes, so ``Timer`` synchronises the device at the end of each span:
-a span is the time the work took, not the time it took to enqueue it.
+card finishes, so ``Timer`` synchronises the calling thread's current CUDA
+stream at the end of each span: a span is the time the work took, not the
+time it took to enqueue it.
 """
 
 from __future__ import annotations
@@ -26,15 +27,22 @@ def trace_annotation(name: str):
 
 @dataclass
 class Timer:
-    """Accumulates named wall-clock spans, synchronising ``device`` (when it
-    is a CUDA device) before each span is closed."""
+    """Accumulates named wall-clock spans, synchronising the current stream
+    of ``device`` (when it is a CUDA device) before each span is opened and
+    closed.
+
+    A span is the calling thread's own work: the stream it waits for is
+    that thread's current one, not the whole device.  So a request that
+    ``One2345Pipeline.run_many`` runs on a stream of its own does not wait
+    for another request's kernels; a ``run`` alone issues everything on
+    one stream, and there the two are the same."""
 
     device: torch.device | str | None = None
     spans: dict = field(default_factory=dict)
 
     def _sync(self):
         if self.device is not None and torch.device(self.device).type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     @contextlib.contextmanager
     def span(self, name: str):

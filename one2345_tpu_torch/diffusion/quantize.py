@@ -33,6 +33,8 @@ route or raises.  ``QConv2d`` marks its three steps for the profiler
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -51,6 +53,7 @@ SKIP_QUANT = _SKIP_SENSITIVE + _SKIP_DENSE
 # the JAX package always runs it compiled (the UNet's apply and the jitted
 # ``quantize_unet_params``)
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))
+_COUNT_LOCK = threading.Lock()  # guards int8_matmul.launch_count
 
 
 def quantize_activation(x: torch.Tensor):
@@ -98,11 +101,18 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if M <= 16:
         a = torch.cat([a, a.new_zeros(32 - M, K)])
     out = torch._int_mm(a, b.contiguous().t())
-    int8_matmul.launch_count += 1
+    _count_launch()
     return out[:M]
 
 
 int8_matmul.launch_count = 0
+
+
+def _count_launch():
+    """One more ``int8_matmul.launch_count``, exact when several threads
+    launch (``One2345Pipeline.run_many``)."""
+    with _COUNT_LOCK:
+        int8_matmul.launch_count += 1
 
 
 def im2col_nhwc(xq: torch.Tensor, k: int, stride: int, padding: int) -> torch.Tensor:

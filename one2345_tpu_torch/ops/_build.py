@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from one2345_tpu_torch.core import compile_cache
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()  # two threads' first launches build once
 
 
 def nvcc() -> str:
@@ -88,11 +90,12 @@ def build_all(names=KERNELS) -> dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all((name,))[name]))
-        _loaded[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            _loaded[name] = lib
+        return lib
 
 
 def build_log(name: str) -> str:

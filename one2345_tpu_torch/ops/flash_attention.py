@@ -27,7 +27,10 @@ bound on an H100 and its design.  ``flash_attention_bwd_dq`` and
 ``flash_attention_backward`` calls both.  Launches are counted on the
 ``flash_attention`` function: ``launch_count`` (forward),
 ``dq_launch_count`` and ``dkv_launch_count`` (backward), ``staged_count``
-and ``bwd_staged_count`` (calls whose inputs were staged first).
+and ``bwd_staged_count`` (calls whose inputs were staged first).  Each
+increment holds one lock, so the counts are exact when several threads
+launch (``One2345Pipeline.run_many``); they are read and reset as plain
+attributes.
 """
 
 from __future__ import annotations
@@ -36,10 +39,18 @@ import contextlib
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
 _PADDED_WIDTHS = (48, 80, 160)  # template instances of the kernels
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``flash_attention.<name>``, atomically."""
+    with _COUNT_LOCK:
+        setattr(flash_attention, name, getattr(flash_attention, name) + int(n))
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -209,7 +220,7 @@ def _launch_fwd(q, k, v):
     dp = kernel_width(q, k, v)
     _check_pointers(q, k, v)
     (q, k, v), staged = stage_unready(q, k, v)
-    flash_attention.staged_count += staged
+    _count("staged_count", staged)
     fn = _bind("flash_attention_fwd", "flash_attention_fwd_bf16", 5, 6)
     B, T, H, D = q.shape
     S = k.shape[1]
@@ -221,7 +232,7 @@ def _launch_fwd(q, k, v):
             B, H, T, S, D, dp, _strides(q, k, v, o), 1.0 / math.sqrt(D), stream,
         )
     _check(err, "flash_attention_fwd")
-    flash_attention.launch_count += 1
+    _count("launch_count")
     return o, lse
 
 
@@ -254,7 +265,7 @@ def _launch_dq(q, k, v, do, lse, o):
     dsum = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     _launch_bwd_kernel("flash_attention_bwd_dq_bf16", kernel_width(q, k, v, do),
                        (q, k, v, o, do, lse), (dq, dsum))
-    flash_attention.dq_launch_count += 1
+    _count("dq_launch_count")
     return dq, dsum
 
 
@@ -263,7 +274,7 @@ def _launch_dkv(q, k, v, do, lse, dsum):
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd_kernel("flash_attention_bwd_dkv_bf16", kernel_width(q, k, v, do),
                        (q, k, v, do, lse, dsum), (dk, dv))
-    flash_attention.dkv_launch_count += 1
+    _count("dkv_launch_count")
     return dk, dv
 
 
@@ -272,7 +283,7 @@ def _launch_bwd(q, k, v, o, lse, do):
     ``bwd_staged_count``), then launch dq, which returns dQ and Dsum, and
     dkv on that Dsum: (dq, dk, dv)."""
     (q, k, v, o, do), staged = stage_unready(q, k, v, o, do)
-    flash_attention.bwd_staged_count += staged
+    _count("bwd_staged_count", staged)
     dq, dsum = _launch_dq(q, k, v, do, lse, o)
     return (dq, *_launch_dkv(q, k, v, do, lse, dsum))
 
@@ -289,7 +300,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, o):
     if _device_type(q, k, v, do, lse, o) == "cpu":
         return dq_reference(q, k, v, do, lse, o)
     (q, k, v, do, o), staged = stage_unready(q, k, v, do, o)
-    flash_attention.bwd_staged_count += staged
+    _count("bwd_staged_count", staged)
     return _launch_dq(q, k, v, do, lse, o)
 
 
@@ -301,7 +312,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum):
     if _device_type(q, k, v, do, lse, dsum) == "cpu":
         return dkv_reference(q, k, v, do, lse, dsum)
     (q, k, v, do), staged = stage_unready(q, k, v, do)
-    flash_attention.bwd_staged_count += staged
+    _count("bwd_staged_count", staged)
     return _launch_dkv(q, k, v, do, lse, dsum)
 
 

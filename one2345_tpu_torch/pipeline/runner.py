@@ -281,9 +281,24 @@ class One2345Pipeline:
     def run_many(self, images, seeds=None, out_dirs=None, max_in_flight: int = 2,
                  **run_kwargs) -> list:
         """Overlapped multi-request mode (serving): requests run in a small
-        thread pool, so one request's host work (marching tets, PLY and PNG
-        writes) overlaps another's device work.  Every run draws its noise
-        from its own seed, so the results equal sequential ``run`` calls.
+        thread pool, so one request's host work (preprocessing, the
+        elevation sweep, marching tets, PLY and PNG writes) overlaps
+        another's device work.  Every run draws its noise from its own
+        seed, so the results equal sequential ``run`` calls.
+
+        On the card each request runs on a CUDA stream of its own, made to
+        wait for the caller's current stream first, so that a host fetch
+        inside one request (the elevation's matches, the field for marching
+        tets) waits for that request's kernels only; its stage images are
+        handed back on the caller's current stream.  The weights are read
+        on every stream: the stages are built here, before the pool starts.
+        ``max_in_flight=1`` (and a sharded stage, whose ranks must issue the
+        sampler's all-gathers in one order) runs the requests one after the
+        other on the calling thread, as ``run`` calls.  On an H100 two
+        requests in flight were measured slower per mesh than
+        ``max_in_flight=1`` (PERF.md, Findings): the two dispatch threads
+        share the host's time rather than fill the card's idle time, as
+        long as every kernel is launched one by one (no CUDA graphs yet).
 
         :param seeds: per-request seeds (default: config.seed + index)
         :param out_dirs: per-request out_dir list (default: no exports)
@@ -297,7 +312,6 @@ class One2345Pipeline:
         if self.use_sam and not run_kwargs.get("skip_preprocess"):
             _ = self.sam
         if getattr(self.zero123, "mesh", None) is not None:
-            # every rank must issue the sampler's all-gathers in one order
             max_in_flight = 1
         n = len(images)
         if seeds is None:
@@ -308,8 +322,25 @@ class One2345Pipeline:
         def one(i):
             return self.run(images[i], out_dir=out_dirs[i], seed=seeds[i], **run_kwargs)
 
+        if max_in_flight <= 1:
+            return [one(i) for i in range(n)]
+        work = one
+        if self.device.type == "cuda":
+            caller = torch.cuda.current_stream(self.device)
+
+            def work(i):
+                stream = torch.cuda.Stream(self.device)
+                stream.wait_stream(caller)  # the inputs and anything queued before
+                with torch.cuda.stream(stream):
+                    result = one(i)
+                caller.wait_stream(stream)
+                for images_out in (result.stage1_images, result.stage2_images):
+                    # their memory must outlive the caller's reads, not only this stream's
+                    images_out.record_stream(caller)
+                return result
+
         with ThreadPoolExecutor(max_workers=max_in_flight) as ex:
-            return list(ex.map(one, range(n)))
+            return list(ex.map(work, range(n)))
 
     # the main path -----------------------------------------------------------
     def run(

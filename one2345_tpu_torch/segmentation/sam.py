@@ -376,12 +376,23 @@ class SamStage:
     def set_image(self, image: np.ndarray) -> dict:
         """Encode a [H, W, 3] uint8 image once; returns the cache prompts
         are decoded against.  The last encoding is memoised by content, so
-        init_bbox -> preprocess on the same thumbnail encodes once."""
+        init_bbox -> preprocess on the same thumbnail encodes once.
+
+        On the card the memo carries an event recorded after the encode on
+        the encoding thread's stream; a thread that takes the memo makes its
+        own current stream wait for that event (and marks the embedding as
+        used there), so a request on another stream never reads an
+        embedding that is still being written."""
         image = np.ascontiguousarray(image)
         key = (hashlib.sha1(image).hexdigest(), image.shape)
         memo = self._memo  # one read: another thread may store its own image meanwhile
         if memo is not None and memo[0] == key:
-            return memo[1]
+            _, cache, ready = memo
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                cache["embedding"].record_stream(stream)
+            return cache
         H, W = image.shape[:2]
         size = self.config.image_size
         scale = size / max(H, W)
@@ -390,7 +401,11 @@ class SamStage:
         padded[:nh, :nw] = cv2_resize_linear(image, (nw, nh), device=self.device)
         emb = self._encode(padded, nh, nw)
         cache = {"embedding": emb, "scale": scale, "hw": (H, W), "nhw": (nh, nw)}
-        self._memo = (key, cache)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        self._memo = (key, cache, ready)
         return cache
 
     @torch.inference_mode()

@@ -217,3 +217,89 @@ def test_nn_dists_on_card_match_cpu(cuda_device):
     a, b = (torch.randn(n, 3, generator=gen).numpy() for n in (3000, 2000))
     card, cpu = nn_dists(a, b, cuda_device), nn_dists(a, b, "cpu")
     assert float(abs(card - cpu).max()) <= 1e-12 * float(abs(cpu).max())
+
+
+def _tiny_card_config():
+    """The walkthrough's toy pipeline with a bf16 UNet (the flash kernels
+    take bf16 only), 3 + 2 DDIM steps."""
+    from one2345_tpu_torch.core.config import (CLIPVisionConfig, DiffusionConfig,
+                                               PipelineConfig, ReconConfig, UNetConfig,
+                                               VAEConfig)
+
+    return PipelineConfig(
+        diffusion=DiffusionConfig(
+            ddim_steps_stage1=3, ddim_steps_stage2=2, image_size=32, latent_size=4,
+            unet=UNetConfig(model_channels=32, channel_mult=(1, 2), attention_resolutions=(1,),
+                            num_heads=4, dtype="bfloat16"),
+            vae=VAEConfig(base_channels=16, channel_mult=(1, 2, 2, 2), dtype="float32"),
+            clip=CLIPVisionConfig(image_size=28, patch_size=14, width=32, layers=2, heads=2,
+                                  dtype="float32"),
+        ),
+        recon=ReconConfig(vol_dims=(16, 16, 16), voxel_size=2.0 / 15.0, mesh_resolution=24),
+        mesh_resolution=24,
+    )
+
+
+@pytest.mark.cuda
+def test_run_many_on_request_streams_equals_sequential_runs(cuda_device):
+    """[a, b, a] at seeds [1, 2, 1], two in flight, each request on a CUDA
+    stream of its own: the stage images, elevation and mesh equal
+    sequential runs bit for bit, and K1 is counted exactly."""
+    from one2345_tpu_torch.pipeline.runner import One2345Pipeline
+
+    pipe = One2345Pipeline(_tiny_card_config(), use_sam=False, device=cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    imgs = []
+    for _ in range(2):
+        img = torch.full((96, 96, 3), 255, dtype=torch.uint8)
+        img[24:72, 24:72] = torch.randint(40, 200, (48, 48, 3), generator=gen, dtype=torch.uint8)
+        imgs.append(img.numpy())
+    imgs, seeds = [imgs[0], imgs[1], imgs[0]], [1, 2, 1]
+    pipe.run(imgs[0], seed=0)  # builds the kernels before the pool starts
+    fa.flash_attention.launch_count = 0
+    seq = [pipe.run(img, seed=s) for img, s in zip(imgs, seeds)]
+    torch.cuda.synchronize()
+    per_run = fa.flash_attention.launch_count // 3
+    fa.flash_attention.launch_count = 0
+    par = pipe.run_many(imgs, seeds=seeds, max_in_flight=2)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launch_count == 3 * per_run > 0
+    for a, b in zip(seq, par):
+        assert torch.equal(a.stage1_images, b.stage1_images)
+        assert torch.equal(a.stage2_images, b.stage2_images)
+        assert a.elevation == b.elevation
+        for key in ("vertices", "faces", "colors"):
+            x, y = getattr(a, key), getattr(b, key)  # numpy arrays
+            assert x.shape == y.shape and (x == y).all(), key
+
+
+@pytest.mark.cuda
+def test_sam_memo_taken_on_another_stream_waits_for_its_encode(cuda_device):
+    """Stream A sleeps, then encodes; stream B takes the memo at once and
+    decodes a box: B must wait for A's encode (the memo's event), so its
+    embedding and mask equal those of an encode on one stream."""
+    from one2345_tpu_torch.core.config import SamConfig
+    from one2345_tpu_torch.segmentation.sam import SamStage
+
+    cfg = SamConfig(image_size=64, patch_size=16, encoder_dim=32, encoder_depth=2,
+                    encoder_heads=2, global_attn_indexes=(1,), window_size=3,
+                    prompt_embed_dim=32, dtype="float32")
+    stage = SamStage(cfg, seed=3, device=cuda_device)
+    gen = torch.Generator().manual_seed(5)
+    img = torch.randint(0, 256, (48, 60, 3), generator=gen, dtype=torch.uint8).numpy()
+    box = (5, 6, 50, 40)
+    ref = stage.set_image(img)
+    ref_emb, ref_mask = ref["embedding"].clone(), stage.predict_box(ref, box)
+    torch.cuda.synchronize()
+    stage._memo = None
+    a, b = torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(a):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of the card's clock before the encode
+        stage.set_image(img)
+    with torch.cuda.stream(b):
+        cache = stage.set_image(img)
+        emb = cache["embedding"].clone()
+        mask = stage.predict_box(cache, box)
+    torch.cuda.synchronize()
+    assert torch.equal(emb, ref_emb)
+    assert (mask == ref_mask).all()

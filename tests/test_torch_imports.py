@@ -239,7 +239,9 @@ def test_torch_examples_import_nothing_forbidden():
     names = {os.path.basename(p) for p in paths}
     assert {"torch_pipeline_wiring.py", "torch_recon_quality.py", "torch_diffusion_quality.py",
             "torch_generative_e2e.py", "torch_walkthrough.py", "torch_demo.py",
-            "torch_validate_real_weights.py"} <= names
+            "torch_validate_real_weights.py", "torch_throughput_probe.py",
+            "torch_stage_probe.py", "torch_fast_mode_probe.py", "torch_train_probe.py",
+            "torch_profile_pipeline.py"} <= names
     for path in paths:
         imported = _imported(path)
         assert not [m for m in imported if m.split(".")[0] in FORBIDDEN], (path, imported)
